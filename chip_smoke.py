@@ -5,26 +5,43 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 
     python3 chip_smoke.py
 
-It drives the port's main path, the semantic leg of /find over an int8
-vector index, once at full size, in phases that each print one line:
+It drives the port's vector-search paths, the semantic leg of /find, once
+at full size, in phases that each print one line:
 
 1. device: the card's name and power limit;
-2. build: compiles every kernel of the path from ``nucliadb_tpu_torch/csrc``;
-3. kernel vs plain: the top-2 slot-scan kernel against its plain PyTorch
-   version on the card, bit for bit, over B in {8, 192, 2048},
-   N in {4096, 6144, 1048576}, D in {128, 768}, S in {128, 256}, with an
-   all-masked column range, planted pair collisions and planted ties; then
-   both timed at B=2048, N=1048576, D=768, S=256;
-4. slice: a clustered 1,000,000 x 768 corpus made from a seed (1024
+2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
+   one nvcc per source, all started together;
+3. kernels vs plain versions, bit for bit (scores as int32 bits, and ids),
+   on the card:
+   - the top-2 int8 slot scan over B in {8, 192, 2048}, N in {4096, 6144,
+     1048576}, D in {128, 768}, S in {128, 256};
+   - its top-1 mode through ``int8_scan_slots`` and
+     ``int8_scan_slots_resident`` over S in {256, 512, 1024}, B in {8, 192,
+     2048} (1024 for the resident wrapper), N in {16384, 24576, 1048576},
+     D in {128, 768};
+   - the binary popcount slot scan over B in {8, 64}, N in {16384,
+     1048576}, D in {128, 768}, S = 1024;
+   all with an all-masked column range and planted ties (and, for int8,
+   pair collisions); then each kernel and its plain version timed once
+   with CUDA events after a warm-up;
+4. slices: a clustered 1,000,000 x 768 corpus made from a seed (1024
    centres, noise 0.35, rows L2-normalised, a label on every tenth
-   paragraph) written as 4 segments plus a deletion, opened through
-   ``VectorSearcher(..., device="cuda")`` with int8 codes (p_pad
-   1,048,576), and queried: a batch of 2048 at top-10 with the default
-   dedup, one single query, one label-filtered and one min_score request.
-   The slot-scan launch count must grow over that run; recall@10 against
-   an exact f32 oracle on 1024 queries must reach 0.95; the filtered
-   request must return only labelled, undeleted paragraphs;
-5. breakdown: the batch's device time by layer, and its host time.
+   paragraph) written once as 4 segments plus a deletion, and opened
+   through ``VectorSearcher(..., device="cuda")`` three times (p_pad
+   1,048,576), each searcher freed before the next:
+   - int8: a batch of 2048 at top-10 with the default dedup, one single
+     query, one label-filtered and one min_score request; the top-2 launch
+     count must grow and the top-1 count must not;
+   - int8 + ``pallas``: a batch of 2048, a filtered and a min_score
+     request; the top-1 count must grow and the top-2 count must not;
+   - binary + ``pallas``: 16 batches of 64 (the popcount kernel, which must
+     launch at least 16 times), one batch of 256 (the route without the
+     kernel: the count must not grow), a filtered and a min_score request.
+   Every batch's recall@10 against an exact f32 oracle on its queries of
+   the first 1024 must reach 0.95; filtered requests return only
+   labelled, undeleted paragraphs; a min_score result is the floored full
+   result;
+5. breakdown, after each slice: its device time by layer and its host time.
 
 It then prints the kernels' JSON line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero and prints no result. It imports
@@ -37,6 +54,7 @@ import json
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -59,6 +77,21 @@ KERNEL_SHAPES = [
     for b in (8, 192, 2048)
 ]
 TIMED_SHAPE = (2048, 1048576, 768, 256)
+TOP1_SHAPES = [
+    (b, n, d, s)
+    for d in (128, 768)
+    for s in (256, 512, 1024)
+    for n in (16384, 24576, 1048576)
+    for b in (8, 192, 2048)
+]
+TOP1_TIMED = {  # (B, N, D, S) per wrapper
+    "int8_scan_slots": (2048, 1048576, 768, 1024),
+    "int8_scan_slots_resident": (1024, 1048576, 768, 512),
+}
+BINARY_SHAPES = [(b, n, d, 1024) for d in (128, 768) for n in (16384, 1048576) for b in (8, 64)]
+BINARY_TIMED = (64, 1048576, 768, 1024)
+BINARY_BATCH = 64  # the largest bucketed batch the binary kernel's gate takes
+SOURCES = ("int8_slot_scan", "binary_slot_scan")
 
 
 def check(cond: bool, what: str) -> None:
@@ -83,6 +116,14 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def same_table(torch, got, want) -> tuple[bool, float]:
+    """(bit-identical scores and ids, max |score difference|)."""
+    same = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and torch.equal(
+        got[1], want[1]
+    )
+    return same, float((got[0] - want[0]).abs().max())
 
 
 def kernel_inputs(gen, d, s, n_max, b_max, device):
@@ -118,12 +159,12 @@ def phase_kernels(torch, slot_scan):
                 if (dd, ss) != (d, s):
                     continue
                 args = (q[:b], codes[:n], scale[:n], mask[:n])
-                ks, ki = slot_scan.int8_scan_slots_resident2(*args, slots=s)
-                rs, ri = slot_scan.int8_scan_slots_resident2_reference(*args, slots=s)
+                got = slot_scan.int8_scan_slots_resident2(*args, slots=s)
+                want = slot_scan.int8_scan_slots_resident2_reference(*args, slots=s)
                 torch.cuda.synchronize()
-                same = torch.equal(ks.view(torch.int32), rs.view(torch.int32)) and torch.equal(ki, ri)
+                same, err = same_table(torch, got, want)
                 check(same, f"kernel != plain at B={b} N={n} D={d} S={s}")
-                max_err = max(max_err, float((ks - rs).abs().max()))
+                max_err = max(max_err, err)
             if (d, s) == TIMED_SHAPE[2:]:
                 args = (q, codes, scale, mask)
                 kernel_ms = cuda_ms(lambda: slot_scan.int8_scan_slots_resident2(*args, slots=s), 5)
@@ -131,6 +172,103 @@ def phase_kernels(torch, slot_scan):
                     lambda: slot_scan.int8_scan_slots_resident2_reference(*args, slots=s), 3
                 )
             del q, codes, scale, mask
+    torch.cuda.empty_cache()
+    return max_err, kernel_ms, plain_ms
+
+
+def phase_top1_kernels(torch, slot_scan):
+    """The top-1 mode through both of its wrappers against the plain
+    version; returns {wrapper: (max_err, kernel_ms, plain_ms)}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    out = {name: [0.0, None, None] for name in TOP1_TIMED}
+    for d in (128, 768):
+        for s in (256, 512, 1024):
+            q, codes, scale, mask = kernel_inputs(gen, d, s, 1048576, 2048, "cuda")
+            for name, timed in TOP1_TIMED.items():
+                wrapper = getattr(slot_scan, name)
+                max_b = slot_scan.RESIDENT_MAX_B if name == "int8_scan_slots_resident" else None
+                for b, n, dd, ss in TOP1_SHAPES:
+                    if (dd, ss) != (d, s):
+                        continue
+                    b = min(b, max_b or b)
+                    args = (q[:b], codes[:n], scale[:n], mask[:n])
+                    got = wrapper(*args, slots=s)
+                    want = slot_scan.int8_scan_slots_top1_reference(*args, slots=s)
+                    torch.cuda.synchronize()
+                    same, err = same_table(torch, got, want)
+                    check(same, f"{name} kernel != plain at B={b} N={n} D={d} S={s}")
+                    out[name][0] = max(out[name][0], err)
+                if (d, s) == timed[2:]:
+                    b = timed[0]
+                    args = (q[:b], codes, scale, mask)
+                    out[name][1] = cuda_ms(lambda: wrapper(*args, slots=s), 5)
+                    out[name][2] = cuda_ms(
+                        lambda: slot_scan.int8_scan_slots_top1_reference(*args, slots=s), 3
+                    )
+            del q, codes, scale, mask
+    torch.cuda.empty_cache()
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def binary_inputs(torch, quant, gen, d, n_max, b_max):
+    """Random sign codes and query planes with their scalars, an all-masked
+    range, and planted equal columns (ids 100, 100+S, 100+3S in one slot,
+    101 in the next)."""
+    w = d // 32
+
+    def words(*shape):
+        x = torch.randint(0, 2**32, shape, generator=gen, device="cuda", dtype=torch.int64)
+        return (x - 2**31).to(torch.int32)
+
+    def uniform(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
+
+    codes_t = words(w, n_max)
+    planes = words(b_max, quant.QUERY_BITS, w)
+    scale, resid = uniform(0.02, 0.05, n_max), uniform(0.5, 1.0, n_max)
+    popcnt = quant.popcount(codes_t).sum(0).float()
+    mask = torch.rand(n_max, generator=gen, device="cuda") > 0.1
+    mask[2048:4096] = False
+    for pid in (100 + 1024, 100 + 3 * 1024, 101):
+        codes_t[:, pid], scale[pid], resid[pid], popcnt[pid] = (
+            codes_t[:, 100], scale[100], resid[100], popcnt[100]
+        )
+        mask[pid] = mask[100] = True
+    qparams = (
+        -uniform(0.1, 0.2, b_max), uniform(0.01, 0.03, b_max),
+        torch.randn(b_max, generator=gen, device="cuda"), uniform(0.9, 1.1, b_max),
+    )
+    return planes, qparams, codes_t, (scale, popcnt, resid), mask
+
+
+def phase_binary_kernel(torch, quant, binary_scan):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    max_err, kernel_ms, plain_ms = 0.0, None, None
+    for d in (128, 768):
+        planes, qparams, codes_t, cols, mask = binary_inputs(torch, quant, gen, d, 1048576, 64)
+        for b, n, dd, s in BINARY_SHAPES:
+            if dd != d:
+                continue
+            args = (
+                planes[:b].contiguous(), *(t[:b].contiguous() for t in qparams),
+                codes_t[:, :n].contiguous(), *(t[:n].contiguous() for t in cols),
+                mask[:n].contiguous(),
+            )
+            got = binary_scan.binary_scan_slots(*args, dim=d, slots=s)
+            want = binary_scan.binary_scan_slots_reference(*args, dim=d, slots=s)
+            torch.cuda.synchronize()
+            same, err = same_table(torch, got, want)
+            check(same, f"binary kernel != plain at B={b} N={n} D={d} S={s}")
+            check(int(got[1][0, 100]) not in (1124, 3172), "a planted tie did not keep its lowest id")
+            max_err = max(max_err, err)
+            if (b, n, d, s) == BINARY_TIMED:
+                kernel_ms = cuda_ms(lambda: binary_scan.binary_scan_slots(*args, dim=d, slots=s), 5)
+                plain_ms = cuda_ms(
+                    lambda: binary_scan.binary_scan_slots_reference(*args, dim=d, slots=s), 2
+                )
+        del planes, qparams, codes_t, cols, mask
     torch.cuda.empty_cache()
     return max_err, kernel_ms, plain_ms
 
@@ -167,105 +305,245 @@ def exact_oracle(torch, vecs, alive, q, k):
     return best_i.cpu().numpy()
 
 
-def phase_slice(torch, slot_scan, tmp):
-    from nucliadb_tpu_torch.index.vector import (
-        Elem, LabelAtom, Quantization, Seq, Similarity, SimpleOpenIndex,
-        VectorConfig, VectorSearcher, VectorSearchRequest, create_segment,
-    )
+def recall_at_k(hits, oracle) -> float:
+    return float(np.mean([
+        len({h.key for h in hits[r]} & {key_of(i) for i in oracle[r]}) / TOP_K
+        for r in range(len(hits))
+    ]))
 
-    t0 = time.perf_counter()
-    vecs, queries = make_corpus(torch, N_ROWS, DIM, BATCH)
-    # the single query sits on a deleted paragraph: it must not come back
-    deleted_row = int(DELETED[1:-1]) * 10 + 3
-    queries[0] = vecs[deleted_row]
-    host = vecs.cpu().numpy()
-    t_gen = time.perf_counter() - t0
+
+class Corpus:
+    """The slices' shared state: the corpus on the card, its segments on
+    disk, the queries and the exact oracle of the first 1024."""
+
+    def __init__(self, torch, tmp):
+        from nucliadb_tpu_torch.index.vector import (
+            Elem, Seq, SimpleOpenIndex, VectorConfig, create_segment,
+        )
+
+        t0 = time.perf_counter()
+        self.vecs, self.queries = make_corpus(torch, N_ROWS, DIM, BATCH)
+        # the single query sits on a deleted paragraph: it must not come back
+        self.deleted_row = int(DELETED[1:-1]) * 10 + 3
+        self.queries[0] = self.vecs[self.deleted_row]
+        host = self.vecs.cpu().numpy()
+        self.t_gen = time.perf_counter() - t0
+
+        cfg = VectorConfig(dimension=DIM)
+        segs, per = [], N_ROWS // N_SEGMENTS
+        for s in range(N_SEGMENTS):
+            elems = [
+                Elem(key=key_of(i), vectors=host[i], labels=["/l/tenth"] if i % 10 == 0 else [])
+                for i in range(s * per, (s + 1) * per)
+            ]
+            segs.append((create_segment(f"{tmp}/s{s}", elems, cfg), Seq(s + 1)))
+        self.open_index = SimpleOpenIndex(
+            segment_list=segs, deletion_list=[(DELETED, Seq(N_SEGMENTS + 1))]
+        )
+        self.t_write = time.perf_counter() - t0 - self.t_gen
+        self.q_np = self.queries.cpu().numpy()
+        self.oracle = None
+
+    def searcher(self, torch, cfg):
+        from nucliadb_tpu_torch.index.vector import VectorSearcher
+
+        t = time.perf_counter()
+        searcher = VectorSearcher(cfg, self.open_index, device="cuda")
+        torch.cuda.synchronize()
+        idx = searcher.index
+        check(idx.p_pad == 1048576 and idx.codes is not None, f"p_pad {idx.p_pad}, codes {idx.codes is not None}")
+        check(idx.keys[:3] == [key_of(0), key_of(1), key_of(2)], "arena rows out of generation order")
+        if self.oracle is None:
+            alive = torch.from_numpy(idx.alive).to("cuda")
+            self.oracle = exact_oracle(torch, self.vecs, alive, self.queries[:ORACLE_QUERIES], TOP_K)
+        return searcher, time.perf_counter() - t
+
+    def free(self, torch):
+        del self.vecs, self.queries
+        torch.cuda.empty_cache()
+
+
+def check_batch(hits, n, what) -> None:
+    check(len(hits) == n and all(len(h) == TOP_K for h in hits), f"{what}: result shape")
+    scores = np.array([[h.score for h in row] for row in hits])
+    check(bool(np.isfinite(scores).all()) and bool((np.diff(scores, axis=1) <= 0).all()), f"{what}: scores")
+    check(not any(h.key.startswith(DELETED) for row in hits for h in row), f"{what}: a deleted key came back")
+
+
+def check_filter_and_floor(searcher, filt_hits, floor_hits, floor_q, what) -> None:
+    from nucliadb_tpu_torch.index.vector import VectorSearchRequest
+
+    flat_filt = [h for row in filt_hits for h in row]
+    check(len(flat_filt) == 64 * TOP_K, f"{what}: filtered result shape")
+    check(all(h.key.split("/")[2] == "0" and "/l/tenth" in h.labels for h in flat_filt),
+          f"{what}: an unlabelled paragraph passed the label filter")
+    check(not any(h.key.startswith(DELETED) for h in flat_filt), f"{what}: a deleted key came back")
+    unfloored = searcher.search(VectorSearchRequest(vectors=floor_q, top_k=TOP_K))
+    for got, full in zip(floor_hits, unfloored):
+        want = [h.key for h in full if h.score >= np.float32(0.9)]
+        check([h.key for h in got] == want, f"{what}: min_score cut differs from the floored full result")
+
+
+def median_ms(fn, reps: int = 5) -> tuple[float, list[float]]:
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), times
+
+
+def reset_launches(*modules) -> None:
+    for mod in modules:
+        mod.LAUNCHES.clear()
+
+
+def phase_slice(torch, slot_scan, binary_scan, corpus):
+    from nucliadb_tpu_torch.index.vector import LabelAtom, Quantization, Similarity, VectorConfig, VectorSearchRequest
 
     cfg = VectorConfig(dimension=DIM, similarity=Similarity.DOT, quantization=Quantization.INT8)
-    segs, per = [], N_ROWS // N_SEGMENTS
-    for s in range(N_SEGMENTS):
-        elems = [
-            Elem(key=key_of(i), vectors=host[i], labels=["/l/tenth"] if i % 10 == 0 else [])
-            for i in range(s * per, (s + 1) * per)
-        ]
-        segs.append((create_segment(f"{tmp}/s{s}", elems, cfg), Seq(s + 1)))
-    open_index = SimpleOpenIndex(segment_list=segs, deletion_list=[(DELETED, Seq(N_SEGMENTS + 1))])
-    t_write = time.perf_counter() - t0 - t_gen
-    searcher = VectorSearcher(cfg, open_index, device="cuda")
-    torch.cuda.synchronize()
-    t_open = time.perf_counter() - t0 - t_gen - t_write
-    idx = searcher.index
-    check(idx.p_pad == 1048576 and idx.codes is not None, f"p_pad {idx.p_pad}, codes {idx.codes is not None}")
-    check(idx.keys[:3] == [key_of(0), key_of(1), key_of(2)], "arena rows out of generation order")
-
-    q_np = queries.cpu().numpy()
+    searcher, t_open = corpus.searcher(torch, cfg)
+    q_np = corpus.q_np
     filt_q = q_np[:64]
     floor_q = q_np[64:80]
     # ---- the main path, counted -----------------------------------------
-    slot_scan.LAUNCHES = 0
+    reset_launches(slot_scan, binary_scan)
     batch_hits = searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K))
     single_hits = searcher.search(VectorSearchRequest(vectors=q_np[0], top_k=TOP_K))
     filt_hits = searcher.search(
         VectorSearchRequest(vectors=filt_q, top_k=TOP_K, filter=LabelAtom("/l/tenth"))
     )
     floor_hits = searcher.search(VectorSearchRequest(vectors=floor_q, top_k=TOP_K, min_score=0.9))
-    launches = slot_scan.LAUNCHES
+    launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
     # ----------------------------------------------------------------------
-    check(launches >= 4, f"slot-scan kernel launched {launches} times on the main path")
+    check(launches.get("top2", 0) >= 4, f"top-2 slot-scan kernel launched {launches} on the int8 path")
+    check(launches.get("top1", 0) == 0 and launches.get("binary", 0) == 0, f"int8 path launched {launches}")
 
-    check(len(batch_hits) == BATCH and all(len(h) == TOP_K for h in batch_hits), "batch result shape")
-    scores = np.array([[h.score for h in row] for row in batch_hits])
-    check(bool(np.isfinite(scores).all()) and bool((np.diff(scores, axis=1) <= 0).all()), "batch scores")
-    alive = torch.from_numpy(idx.alive).to("cuda")
-    oracle = exact_oracle(torch, vecs, alive, queries[:ORACLE_QUERIES], TOP_K)
-    recall = float(np.mean([
-        len({h.key for h in batch_hits[r]} & {key_of(i) for i in oracle[r]}) / TOP_K
-        for r in range(ORACLE_QUERIES)
-    ]))
-    check(recall >= RECALL_BAR, f"recall@10 {recall} < {RECALL_BAR}")
-
+    check_batch(batch_hits, BATCH, "int8")
+    recall = recall_at_k(batch_hits[:ORACLE_QUERIES], corpus.oracle)
+    check(recall >= RECALL_BAR, f"int8 recall@10 {recall} < {RECALL_BAR}")
     check(len(single_hits) == 1 and len(single_hits[0]) == TOP_K, "single query result")
-    all_keys = [h.key for row in batch_hits + single_hits + filt_hits + floor_hits for h in row]
-    check(not any(k.startswith(DELETED) for k in all_keys), "a deleted key came back")
-    flat_filt = [h for row in filt_hits for h in row]
-    check(len(flat_filt) == 64 * TOP_K, "filtered result shape")
-    check(all(h.key.split("/")[2] == "0" and "/l/tenth" in h.labels for h in flat_filt),
-          "an unlabelled paragraph passed the label filter")
-    unfloored = searcher.search(VectorSearchRequest(vectors=floor_q, top_k=TOP_K))
-    for got, full in zip(floor_hits, unfloored):
-        want = [h.key for h in full if h.score >= np.float32(0.9)]
-        check([h.key for h in got] == want, "min_score cut differs from the floored full result")
+    check(not any(h.key.startswith(DELETED) for row in single_hits for h in row), "a deleted key came back")
+    check_filter_and_floor(searcher, filt_hits, floor_hits, floor_q, "int8")
 
-    def one_batch():
-        searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K))
-
-    one_batch()
-    times = []
-    for _ in range(5):
-        t = time.perf_counter()
-        one_batch()
-        times.append((time.perf_counter() - t) * 1e3)
-    ms = float(np.median(times))
+    ms, times = median_ms(lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)))
     print(
-        f"slice: {N_ROWS}x{DIM} int8, p_pad {idx.p_pad}, {N_SEGMENTS} segments + 1 deletion; "
-        f"gen {t_gen:.1f}s write {t_write:.1f}s open {t_open:.1f}s; "
+        f"slice int8: {N_ROWS}x{DIM}, p_pad {searcher.index.p_pad}, {N_SEGMENTS} segments + 1 deletion; "
+        f"gen {corpus.t_gen:.1f}s write {corpus.t_write:.1f}s open {t_open:.1f}s; "
         f"recall@10 {recall:.4f} on {ORACLE_QUERIES} queries; batch {BATCH} top-{TOP_K} "
         f"{ms:.2f} ms/batch (median of 5: {', '.join(f'{t:.2f}' for t in times)}), "
-        f"{BATCH / ms * 1e3:.0f} QPS; slot-scan launches {launches}",
+        f"{BATCH / ms * 1e3:.0f} QPS; launches {launches}",
         flush=True,
     )
-    return searcher, q_np, launches
+    return searcher, launches["top2"]
+
+
+def phase_int8_pallas_slice(torch, slot_scan, binary_scan, corpus):
+    from nucliadb_tpu_torch.index.vector import LabelAtom, Quantization, VectorConfig, VectorSearchRequest
+
+    cfg = VectorConfig(dimension=DIM, quantization=Quantization.INT8, flags=["pallas"])
+    searcher, t_open = corpus.searcher(torch, cfg)
+    q_np = corpus.q_np
+    # ---- the main path, counted -----------------------------------------
+    reset_launches(slot_scan, binary_scan)
+    batch_hits = searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K))
+    filt_hits = searcher.search(
+        VectorSearchRequest(vectors=q_np[:64], top_k=TOP_K, filter=LabelAtom("/l/tenth"))
+    )
+    floor_hits = searcher.search(VectorSearchRequest(vectors=q_np[64:80], top_k=TOP_K, min_score=0.9))
+    launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+    # ----------------------------------------------------------------------
+    check(launches.get("top1", 0) >= 3, f"top-1 slot-scan kernel launched {launches} on the pallas path")
+    check(launches.get("top2", 0) == 0 and launches.get("binary", 0) == 0, f"pallas path launched {launches}")
+    check_batch(batch_hits, BATCH, "int8 + pallas")
+    recall = recall_at_k(batch_hits[:ORACLE_QUERIES], corpus.oracle)
+    check(recall >= RECALL_BAR, f"int8 + pallas recall@10 {recall} < {RECALL_BAR}")
+    check_filter_and_floor(searcher, filt_hits, floor_hits, q_np[64:80], "int8 + pallas")
+    ms, times = median_ms(lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)))
+    print(
+        f"slice int8 + pallas: open {t_open:.1f}s; recall@10 {recall:.4f} on {ORACLE_QUERIES} queries; "
+        f"batch {BATCH} top-{TOP_K} {ms:.2f} ms/batch (median of 5: {', '.join(f'{t:.2f}' for t in times)}), "
+        f"{BATCH / ms * 1e3:.0f} QPS; launches {launches}",
+        flush=True,
+    )
+    return searcher, launches["top1"]
+
+
+def phase_binary_slice(torch, slot_scan, binary_scan, corpus):
+    from nucliadb_tpu_torch.index.vector import LabelAtom, Quantization, VectorConfig, VectorSearchRequest
+
+    cfg = VectorConfig(dimension=DIM, quantization=Quantization.BINARY, flags=["pallas"])
+    searcher, t_open = corpus.searcher(torch, cfg)
+    q_np = corpus.q_np
+    big = 256
+    # ---- the main path, counted -----------------------------------------
+    reset_launches(slot_scan, binary_scan)
+    batches = [
+        searcher.search(VectorSearchRequest(vectors=q_np[lo : lo + BINARY_BATCH], top_k=TOP_K))
+        for lo in range(0, ORACLE_QUERIES, BINARY_BATCH)
+    ]
+    before_big = binary_scan.LAUNCHES["binary"]
+    big_hits = searcher.search(VectorSearchRequest(vectors=q_np[:big], top_k=TOP_K))
+    big_launches = binary_scan.LAUNCHES["binary"] - before_big
+    filt_hits = searcher.search(
+        VectorSearchRequest(vectors=q_np[:64], top_k=TOP_K, filter=LabelAtom("/l/tenth"))
+    )
+    floor_hits = searcher.search(VectorSearchRequest(vectors=q_np[64:80], top_k=TOP_K, min_score=0.9))
+    launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+    # ----------------------------------------------------------------------
+    n_batches = ORACLE_QUERIES // BINARY_BATCH
+    check(launches.get("binary", 0) >= n_batches, f"binary kernel launched {launches} for {n_batches} batches")
+    check(big_launches == 0, f"the batch of {big} launched the binary kernel {big_launches} times")
+    check(launches.get("top1", 0) == 0 and launches.get("top2", 0) == 0, f"binary path launched {launches}")
+    hits = [row for batch in batches for row in batch]
+    check_batch(hits, ORACLE_QUERIES, "binary + pallas")
+    check_batch(big_hits, big, "binary, batch 256")
+    recall = recall_at_k(hits, corpus.oracle)
+    recall_big = recall_at_k(big_hits, corpus.oracle[:big])
+    check(recall >= RECALL_BAR, f"binary + pallas recall@10 {recall} < {RECALL_BAR}")
+    check(recall_big >= RECALL_BAR, f"binary batch-{big} recall@10 {recall_big} < {RECALL_BAR}")
+    check_filter_and_floor(searcher, filt_hits, floor_hits, q_np[64:80], "binary + pallas")
+    ms, times = median_ms(
+        lambda: searcher.search(VectorSearchRequest(vectors=q_np[:BINARY_BATCH], top_k=TOP_K))
+    )
+    ms_big, _ = median_ms(lambda: searcher.search(VectorSearchRequest(vectors=q_np[:big], top_k=TOP_K)), 2)
+    print(
+        f"slice binary + pallas: open {t_open:.1f}s; recall@10 {recall:.4f} over {n_batches} batches of "
+        f"{BINARY_BATCH} (kernel), {recall_big:.4f} for one batch of {big} (no kernel); batch {BINARY_BATCH} "
+        f"{ms:.2f} ms (median of 5: {', '.join(f'{t:.2f}' for t in times)}), {BINARY_BATCH / ms * 1e3:.0f} QPS; "
+        f"batch {big} {ms_big:.2f} ms; launches {launches}",
+        flush=True,
+    )
+    return searcher, launches["binary"]
+
+
+def breakdown(torch, name, searcher, q_np, layers, reps=5):
+    """Device time of each layer (CUDA events, mean of ``reps`` after a
+    warm-up), and host time of the index's search and of the facade's
+    (median of 3 after one)."""
+    from nucliadb_tpu_torch.index.vector import VectorSearchRequest
+
+    out = {layer: round(cuda_ms(fn, reps), 3) for layer, fn in layers.items()}
+    host = {
+        "index_search": lambda: searcher.index.search(q_np, TOP_K, with_duplicates=False),
+        "searcher_search": lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)),
+    }
+    for layer, fn in host.items():
+        times = []
+        for _ in range(4):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[f"host_{layer}"] = round(float(np.median(times[1:])), 3)
+    print(f"breakdown {name} (ms, batch {q_np.shape[0]}): {json.dumps(out)}", flush=True)
 
 
 def phase_breakdown(torch, searcher, q_np):
-    """Device time of each layer of one 2048-query batch (CUDA events), and
-    host time of the whole search with and without the facade. Every layer
-    is timed through the index's own functions: ``candidates`` is
-    ``_int8_candidates`` (quantise, slot scan, slot top-c), of which
-    ``quantise`` and ``slot_scan`` are its first two calls;
-    ``rerank_and_cut`` is ``_rerank_and_cut`` (gather-dot, dedup, cut), of
-    which ``dedup`` is ``_duplicate_mask``."""
-    from nucliadb_tpu_torch.index.vector import VectorSearchRequest
+    """The int8 route: ``candidates`` is ``_int8_candidates`` (quantise,
+    slot scan, slot top-c), of which ``quantise`` and ``slot_scan`` are its
+    first two calls; ``rerank_and_cut`` is ``_rerank_and_cut`` (gather-dot,
+    dedup, cut), of which ``dedup`` is ``_duplicate_mask``."""
     from nucliadb_tpu_torch.index.vector import device as dv
     from nucliadb_tpu_torch.ops import quant, slot_scan
 
@@ -277,7 +555,7 @@ def phase_breakdown(torch, searcher, q_np):
     qc, _ = quant.quantize_rows(q)
     cand = dv._int8_candidates(idx.codes, q, budget, mask)
     vecs = idx.vectors[cand.long().clamp_min(0)]
-    layers = {
+    breakdown(torch, "int8", searcher, q_np, {
         "quantise": lambda: quant.quantize_rows(q),
         "slot_scan": lambda: slot_scan.int8_scan_slots_resident2(qc, idx.codes.codes, idx.codes.scale, mask),
         "candidates": lambda: dv._int8_candidates(idx.codes, q, budget, mask),
@@ -286,29 +564,70 @@ def phase_breakdown(torch, searcher, q_np):
         "whole_search_int8": lambda: dv._search_int8(
             idx.codes, idx.vectors, q, mask, floor, TOP_K, "dot", True
         ),
-    }
-    out = {name: round(cuda_ms(fn, 5), 3) for name, fn in layers.items()}
-    # host clock: the index's search (upload, device work, fetch) and the
-    # facade around it (mask build, VectorHit objects)
-    host = {
-        "index_search": lambda: idx.search(q_np, TOP_K, with_duplicates=False),
-        "searcher_search": lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)),
-    }
-    for name, fn in host.items():
-        times = []
-        for _ in range(4):
-            t = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t) * 1e3)
-        out[f"host_{name}"] = round(float(np.median(times[1:])), 3)
-    print(f"breakdown (ms, batch {BATCH}): {json.dumps(out)}", flush=True)
+    })
+
+
+def phase_int8_pallas_breakdown(torch, searcher, q_np):
+    """``candidates`` is ``_int8_pallas_candidates`` (quantise, top-1 slot
+    scan, slot top-c)."""
+    from nucliadb_tpu_torch.index.vector import device as dv
+    from nucliadb_tpu_torch.ops import quant, slot_scan
+
+    idx = searcher.index
+    q = torch.from_numpy(q_np).to("cuda")
+    mask = idx.base_mask_device()
+    budget = quant.int8_rerank_budget(TOP_K)
+    floor = float(np.float32(-3.0e38))
+    qc, _ = quant.quantize_rows(q)
+    cand = dv._int8_pallas_candidates(idx.codes, q, budget, mask)
+    breakdown(torch, "int8 + pallas", searcher, q_np, {
+        "quantise": lambda: quant.quantize_rows(q),
+        "slot_scan": lambda: slot_scan.int8_scan_slots(qc, idx.codes.codes, idx.codes.scale, mask),
+        "candidates": lambda: dv._int8_pallas_candidates(idx.codes, q, budget, mask),
+        "rerank_and_cut": lambda: dv._rerank_and_cut(idx.vectors, q, cand, floor, TOP_K, dedup=True),
+        "whole_search_int8_pallas": lambda: dv._search_int8_pallas(
+            idx.codes, idx.vectors, q, mask, floor, TOP_K, "dot", True
+        ),
+    })
+
+
+def phase_binary_breakdown(torch, searcher, q_np):
+    """``planes`` is ``binary_query_params``; ``candidates`` is
+    ``_binary_pallas_candidates`` (planes, popcount slot scan, slot top-c
+    of 1000); ``whole_search_binary_b256`` is the route without the kernel
+    on a batch of 256 (one run after a warm-up)."""
+    from nucliadb_tpu_torch.index.vector import device as dv
+    from nucliadb_tpu_torch.ops import binary_scan, quant
+
+    idx = searcher.index
+    codes = idx.codes
+    q = torch.from_numpy(q_np[:BINARY_BATCH]).to("cuda")
+    q_big = torch.from_numpy(q_np[:256]).to("cuda")
+    mask = idx.base_mask_device()
+    budget = quant.binary_rerank_budget(TOP_K)
+    floor = float(np.float32(-3.0e38))
+    params = quant.binary_query_params(q)
+    cand = dv._binary_pallas_candidates(codes, q, budget, mask)
+    cols = (codes.codes_t, codes.scale, codes.popcnt, codes.resid, mask)
+    breakdown(torch, "binary + pallas", searcher, q_np[:BINARY_BATCH], {
+        "planes": lambda: quant.binary_query_params(q),
+        "slot_scan": lambda: binary_scan.binary_scan_slots(*params, *cols, dim=codes.dim),
+        "candidates": lambda: dv._binary_pallas_candidates(codes, q, budget, mask),
+        "rerank_and_cut": lambda: dv._rerank_and_cut(idx.vectors, q, cand, floor, TOP_K, dedup=True),
+        "whole_search_binary_pallas": lambda: dv._search_binary_pallas(
+            codes, idx.vectors, q, mask, floor, TOP_K, "dot", True
+        ),
+    })
+    b256 = cuda_ms(lambda: dv._search_binary(codes, idx.vectors, q_big, mask, floor, TOP_K, "dot", True), 1)
+    print(f"breakdown binary, no kernel (ms, batch 256): {json.dumps({'whole_search_binary_b256': round(b256, 3)})}",
+          flush=True)
 
 
 def main() -> None:
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    from nucliadb_tpu_torch.ops import slot_scan
+    from nucliadb_tpu_torch.ops import binary_scan, quant, slot_scan
     from nucliadb_tpu_torch.utils import kernels
 
     name = torch.cuda.get_device_name(0)
@@ -321,9 +640,11 @@ def main() -> None:
     print(smi, flush=True)
 
     t = time.perf_counter()
-    lib = kernels.build("int8_slot_scan")
-    kernels.load("int8_slot_scan")
-    print(f"build: {lib.name} in {time.perf_counter() - t:.1f}s", flush=True)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, together
+        libs = list(pool.map(kernels.build, SOURCES))
+    for src in SOURCES:
+        kernels.load(src)
+    print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t:.1f}s", flush=True)
 
     max_err, kernel_ms, plain_ms = phase_kernels(torch, slot_scan)
     print(
@@ -331,21 +652,56 @@ def main() -> None:
         f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms",
         flush=True,
     )
+    top1 = phase_top1_kernels(torch, slot_scan)
+    for wrapper, (err, k_ms, p_ms) in top1.items():
+        print(
+            f"top-1 kernel vs plain ({wrapper}): bit-identical at {len(TOP1_SHAPES)} shapes; "
+            f"at B,N,D,S={TOP1_TIMED[wrapper]} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms",
+            flush=True,
+        )
+    bin_err, bin_ms, bin_plain_ms = phase_binary_kernel(torch, quant, binary_scan)
+    print(
+        f"binary kernel vs plain: bit-identical at {len(BINARY_SHAPES)} shapes; at B,N,D,S={BINARY_TIMED} "
+        f"kernel {bin_ms:.3f} ms, plain {bin_plain_ms:.3f} ms",
+        flush=True,
+    )
 
     with tempfile.TemporaryDirectory() as tmp:
-        searcher, q_np, launches = phase_slice(torch, slot_scan, tmp)
-    phase_breakdown(torch, searcher, q_np)
+        corpus = Corpus(torch, tmp)
+        searcher, top2_launches = phase_slice(torch, slot_scan, binary_scan, corpus)
+        phase_breakdown(torch, searcher, corpus.q_np)
+        del searcher
+        torch.cuda.empty_cache()
+        searcher, top1_launches = phase_int8_pallas_slice(torch, slot_scan, binary_scan, corpus)
+        phase_int8_pallas_breakdown(torch, searcher, corpus.q_np)
+        del searcher
+        torch.cuda.empty_cache()
+        searcher, binary_launches = phase_binary_slice(torch, slot_scan, binary_scan, corpus)
+        phase_binary_breakdown(torch, searcher, corpus.q_np)
+        del searcher
+        corpus.free(torch)
+    print(
+        "note: int8_scan_slots_resident has no serving route in either package; its kernel is the "
+        "top-1 mode of int8_slot_scan.cu, so its launches are that mode's on the int8 + pallas path",
+        flush=True,
+    )
 
-    print(json.dumps({"kernels": [{
-        "name": "int8_scan_slots_resident2",
-        "route": "cuda",
-        "source": "nucliadb_tpu_torch/csrc/int8_slot_scan.cu",
-        "replaces": "nucliadb_tpu/ops/pallas_scan.py:350",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    int8_src = "nucliadb_tpu_torch/csrc/int8_slot_scan.cu"
+    entries = [
+        ("int8_scan_slots_resident2", int8_src, "nucliadb_tpu/ops/pallas_scan.py:350",
+         top2_launches, max_err, kernel_ms, plain_ms),
+        ("int8_scan_slots", int8_src, "nucliadb_tpu/ops/pallas_scan.py:47",
+         top1_launches, *top1["int8_scan_slots"]),
+        ("int8_scan_slots_resident", int8_src, "nucliadb_tpu/ops/pallas_scan.py:213",
+         top1_launches, *top1["int8_scan_slots_resident"]),
+        ("binary_scan_slots", "nucliadb_tpu_torch/csrc/binary_slot_scan.cu",
+         "nucliadb_tpu/ops/pallas_scan.py:523", binary_launches, bin_err, bin_ms, bin_plain_ms),
+    ]
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": n,
+         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+        for k, src, rep, n, err, k_ms, p_ms in entries
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
 
 

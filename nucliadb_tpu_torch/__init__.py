@@ -7,8 +7,9 @@ its counterparts module by module, under the same names:
   ``device_fetch``;
 - ``utils/kernels.py``  — builds the hand-written CUDA kernels in ``csrc/``
   with ``nvcc`` at first use and loads them with ``ctypes``;
-- ``ops/``              — top-k, exact distances, int8 codes and the
-  top-2 slot scan (``csrc/int8_slot_scan.cu``);
+- ``ops/``              — top-k, exact distances, int8 and binary codes,
+  and the slot scans (``csrc/int8_slot_scan.cu``,
+  ``csrc/binary_slot_scan.cu``), each beside its plain version;
 - ``index/vector/``     — segment files, the device-resident vector index
   and the ``VectorSearcher`` facade.
 

@@ -2,7 +2,10 @@
 
 Counterpart of ``nucliadb_tpu/index/vector/__init__.py:121-230``, the
 searcher the shard searcher calls for the semantic leg. The compute runs
-through the port's device index (``device.py``) on an explicit ``device``.
+through the port's device index (``device.py``) on an explicit ``device``:
+the exact tiers, int8 codes (with or without the ``pallas`` flag) and
+binary codes (with or without it). MULTI cardinality, the ``ivf``/``hnsw``
+flags and arena paging are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -13,10 +13,21 @@ Routes of ``search``, as in the JAX package:
 - ``_search_int8`` above ``EXACT_SCAN_THRESHOLD`` rows: int8 candidates,
   then the exact rerank and cut. Candidates come from the top-2 slot scan
   (``ops/slot_scan.py``) under the JAX package's gate (``device.py:929-933``),
-  otherwise from an exact top-c of the int8 estimates.
+  otherwise from an exact top-c of the int8 estimates;
+- ``_search_int8_pallas`` (flag ``pallas``, ``slot_scan.eligible``): the
+  candidates come from the top-1 slot scan ``int8_scan_slots``;
+- binary codes (quantization ``binary``) above the threshold:
+  ``_search_binary_pallas`` (flag ``pallas``, a bucketed batch of at most
+  64, ``binary_scan.binary_eligible``) takes its candidates from the
+  popcount slot scan (``ops/binary_scan.py``); ``_search_binary`` from an
+  exact top-c of the optimistic estimates.
+
+The routes and their gates are the JAX package's (``device.py:589-632``);
+each slot scan is a CUDA kernel for tensors on the card and its plain
+version on the CPU.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, Queue 1):
-MULTI cardinality, binary codes, the ``pallas``/``ivf``/``hnsw`` flags and
+MULTI cardinality, the ``ivf``/``hnsw`` flags and
 ``NDBTPU_VECTOR_ARENA_BUDGET`` paging.
 
 Unlike JAX arrays, torch tensors are updated in place: an incremental
@@ -36,7 +47,7 @@ import torch
 from nucliadb_tpu.types import Seq
 from nucliadb_tpu.utils.buckets import bucket
 
-from ...ops import quant, slot_scan
+from ...ops import binary_scan, quant, slot_scan
 from ...ops.distance import prepare_query, rerank_scores, scores_matmul
 from ...ops.topk import NEG_INF, masked_topk
 from ...utils.platform import device_fetch, resolve_device
@@ -60,9 +71,7 @@ def _check_ported(config: VectorConfig) -> None:
     where = "is not ported yet (ROADMAP.md, Queue 1)"
     if config.cardinality == VectorCardinality.MULTI:
         raise NotImplementedError(f"MULTI cardinality (MaxSim) {where}")
-    if config.quantization == Quantization.BINARY:
-        raise NotImplementedError(f"binary quantization {where}")
-    unported = {"pallas", "ivf", "hnsw"} & set(config.flags)
+    unported = {"ivf", "hnsw"} & set(config.flags)
     if unported:
         raise NotImplementedError(f"vector flags {sorted(unported)} {where}")
     if int(os.environ.get("NDBTPU_VECTOR_ARENA_BUDGET", "0") or 0) > 0:
@@ -164,9 +173,10 @@ class DeviceVectorIndex:
         self._base_mask_dev: torch.Tensor | None = None
         self._set_host_arena(flat)
 
-        self.codes: quant.Int8Codes | None = None
-        if self.n_para > EXACT_SCAN_THRESHOLD and config.quantization == Quantization.INT8:
-            if delta_dev is not None and prev.codes is not None:
+        self.codes: quant.Int8Codes | quant.BinaryCodes | None = None
+        quantized = self.n_para > EXACT_SCAN_THRESHOLD
+        if quantized and config.quantization == Quantization.INT8:
+            if delta_dev is not None and isinstance(prev.codes, quant.Int8Codes):
                 # int8 encoding is per-row: encode only the delta and splice
                 dcodes = quant.Int8Codes.encode(delta_dev)
                 prev.codes.codes[rows] = dcodes.codes
@@ -174,6 +184,10 @@ class DeviceVectorIndex:
                 self.codes = prev.codes
             else:
                 self.codes = quant.Int8Codes.encode(self.vectors)
+        elif quantized and config.quantization == Quantization.BINARY:
+            # as the JAX package does, re-encode the whole arena (a delta is
+            # already written into it above)
+            self.codes = quant.BinaryCodes.encode(self.vectors)
 
     @classmethod
     def from_reference_state(
@@ -192,9 +206,12 @@ class DeviceVectorIndex:
 
         ``arrays``: ``vectors [p_pad, D]``, ``alive [n_para] bool``,
         ``para_seg [n_para] i32`` and, when the index has int8 codes,
-        ``codes [p_pad, D] i8`` and ``scale [p_pad] f32`` (for example the
-        ``np.asarray`` of a JAX ``DeviceVectorIndex``'s buffers). Such an
-        index has no segment identity, so it is never extended in place."""
+        ``codes [p_pad, D] i8`` and ``scale [p_pad] f32``, or, when it has
+        binary codes, ``codes_t [D/32, p_pad] u32`` (or its int32 view),
+        ``bin_scale``, ``resid`` and ``popcnt`` (``[p_pad] f32``); for
+        example the ``np.asarray`` of a JAX ``DeviceVectorIndex``'s buffers.
+        Such an index has no segment identity, so it is never extended in
+        place."""
         _check_ported(config)
         self = cls.__new__(cls)
         self.device = resolve_device(device)
@@ -218,10 +235,21 @@ class DeviceVectorIndex:
         self._base_mask_dev = None
         self._set_host_arena(vectors[: self.n_para])
         self.codes = None
+
+        def f32(key):
+            return torch.tensor(arrays[key], dtype=torch.float32, device=self.device)
+
         if "codes" in arrays:
             self.codes = quant.Int8Codes(
                 codes=torch.tensor(arrays["codes"], dtype=torch.int8, device=self.device),
-                scale=torch.tensor(arrays["scale"], dtype=torch.float32, device=self.device),
+                scale=f32("scale"),
+            )
+        elif "codes_t" in arrays:
+            words = np.ascontiguousarray(arrays["codes_t"]).view(np.int32)
+            self.codes = quant.BinaryCodes(
+                codes_t=torch.tensor(words, device=self.device),
+                scale=f32("bin_scale"), resid=f32("resid"), popcnt=f32("popcnt"),
+                dim=config.dimension,
             )
         return self
 
@@ -336,8 +364,28 @@ class DeviceVectorIndex:
         qp[:b] = q
         qt = torch.from_numpy(qp).to(self.device)
         sim = self.config.similarity.value
-        if self.codes is not None:
-            s, i = _search_int8(self.codes, self.vectors, qt, mask_t, ms, top_k, sim, dedup)
+        pallas = "pallas" in self.config.flags
+        dim = self.config.dimension
+        args = (self.codes, self.vectors, qt, mask_t, ms, top_k, sim, dedup)
+        if isinstance(self.codes, quant.Int8Codes):
+            if pallas and slot_scan.eligible(self.p_pad, dim, False):
+                s, i = _search_int8_pallas(*args)
+            else:
+                s, i = _search_int8(*args)
+        elif isinstance(self.codes, quant.BinaryCodes):
+            # the JAX package's gate: the bucketed batch, and the Pallas
+            # kernel's block for it
+            if (
+                pallas
+                and b_pad <= 64
+                and binary_scan.binary_eligible(
+                    self.p_pad, dim, False,
+                    block_n=binary_scan.binary_block_for(self.p_pad, b_pad, slot_scan.SLOTS),
+                )
+            ):
+                s, i = _search_binary_pallas(*args)
+            else:
+                s, i = _search_binary(*args)
         else:
             s, i = _search_exact(self.vectors, qt, mask_t, ms, top_k, sim, dedup)
         s, i = device_fetch(s, i)
@@ -491,20 +539,75 @@ def _int8_candidates(codes, q, budget, para_mask):
         slot_s, slot_i = slot_scan.int8_scan_slots_resident2(
             qc, codes.codes, codes.scale, para_mask
         )
-        c = min(budget, slot_s.shape[-1])
-        # lax.top_k order: lower slot index first among equal scores
-        top_s, pos = torch.sort(slot_s, dim=-1, descending=True, stable=True)
-        top_s, pos = top_s[:, :c], pos[:, :c]
-        return torch.where(
-            top_s > slot_scan.NEG_INF / 2, torch.gather(slot_i, -1, pos), -1
-        )
+        return _slot_candidates(slot_s, slot_i, budget)
     est = quant.int8_estimate_scores(codes, q)
     _, cand = masked_topk(est, min(budget, est.shape[-1]), mask=para_mask)
     return cand
+
+
+def _slot_candidates(slot_s, slot_i, budget):
+    """[B, C] candidate ids from a slot table: its top-C entries (C = the
+    budget, at most the table's width) in ``lax.top_k``'s order (a stable
+    descending sort: the lower slot index first among equal scores), empty
+    slots cut to -1."""
+    c = min(budget, slot_s.shape[-1])
+    top_s, pos = torch.sort(slot_s, dim=-1, descending=True, stable=True)
+    top_s, pos = top_s[:, :c], pos[:, :c]
+    return torch.where(top_s > slot_scan.NEG_INF / 2, torch.gather(slot_i, -1, pos), -1)
 
 
 def _search_int8(codes, vectors, queries, para_mask, min_score, k, similarity, dedup=False):
     """Int8 estimate scan -> candidates -> exact rerank (see _int8_candidates)."""
     q = prepare_query(queries, similarity)
     cand = _int8_candidates(codes, q, quant.int8_rerank_budget(k), para_mask)
+    return _rerank_and_cut(vectors, q, cand, min_score, k, dedup=dedup)
+
+
+def _int8_pallas_candidates(codes, q, budget, para_mask):
+    """[B, C] candidate ids from the top-1 slot scan ``int8_scan_slots``."""
+    qc, _ = quant.quantize_rows(q)
+    slot_s, slot_i = slot_scan.int8_scan_slots(
+        qc, codes.codes, codes.scale, para_mask,
+        block_n=slot_scan.BLOCK_N, slots=slot_scan.SLOTS,
+    )
+    return _slot_candidates(slot_s, slot_i, budget)
+
+
+def _search_int8_pallas(codes, vectors, queries, para_mask, min_score, k, similarity, dedup=False):
+    """Int8 candidates from the top-1 slot scan (config flag "pallas"),
+    then the exact rerank and cut."""
+    q = prepare_query(queries, similarity)
+    cand = _int8_pallas_candidates(codes, q, quant.int8_rerank_budget(k), para_mask)
+    return _rerank_and_cut(vectors, q, cand, min_score, k, dedup=dedup)
+
+
+def _binary_pallas_candidates(codes, q, budget, para_mask):
+    """[B, C] candidate ids from the popcount slot scan ``binary_scan_slots``
+    (optimistic scores: estimate + bound)."""
+    n = codes.codes_t.shape[1]
+    slot_s, slot_i = binary_scan.binary_scan_slots(
+        *quant.binary_query_params(q),
+        codes.codes_t, codes.scale, codes.popcnt, codes.resid, para_mask,
+        dim=codes.dim,
+        block_n=binary_scan.binary_block_for(n, q.shape[0], slot_scan.SLOTS),
+        slots=slot_scan.SLOTS,
+    )
+    return _slot_candidates(slot_s, slot_i, budget)
+
+
+def _search_binary_pallas(codes, vectors, queries, para_mask, min_score, k, similarity, dedup=False):
+    """Binary candidates from the popcount slot scan (config flag "pallas"):
+    no [B, N] estimate matrix is formed, only the [B, S] slot table; then
+    the exact rerank and cut."""
+    q = prepare_query(queries, similarity)
+    cand = _binary_pallas_candidates(codes, q, quant.binary_rerank_budget(k), para_mask)
+    return _rerank_and_cut(vectors, q, cand, min_score, k, dedup=dedup)
+
+
+def _search_binary(codes, vectors, queries, para_mask, min_score, k, similarity, dedup=False):
+    """Binary candidates from an exact top-c of the optimistic estimates,
+    taken over column chunks (``quant.binary_scan_candidates``), then the
+    exact rerank and cut."""
+    q = prepare_query(queries, similarity)
+    _, cand = quant.binary_scan_candidates(codes, q, k, mask=para_mask)
     return _rerank_and_cut(vectors, q, cand, min_score, k, dedup=dedup)

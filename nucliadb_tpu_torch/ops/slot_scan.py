@@ -1,23 +1,33 @@
-"""Top-2-per-slot int8 scan: the CUDA kernel and its plain version.
+"""Top-1 and top-2-per-slot int8 scans: the CUDA kernel and its plain versions.
 
-Counterpart of ``int8_scan_slots_resident2`` / ``_resident2_kernel`` in
-``nucliadb_tpu/ops/pallas_scan.py``. For B int8 queries against N int8
-codes, column j scores ``f32(i32 dot) * scale[j] + bias[j]`` (bias 0, or
-``NEG_INF`` where the mask is False) and lands in slot ``j mod S``; each
-slot keeps its two best (score, id) under the order "score descending, then
-id ascending" (the Pallas kernel inserts with strict ``>`` in ascending
-column order). The result is ``([B, 2S] scores, [B, 2S] ids)``: the top-1
-table followed by the top-2 table. It depends on the slot map alone, never
-on how N or B is tiled.
+Counterparts of three wrappers of ``nucliadb_tpu/ops/pallas_scan.py``:
 
-``int8_scan_slots_resident2`` takes the plain version for tensors on the
-CPU and launches ``csrc/int8_slot_scan.cu`` for tensors on a CUDA device;
-there is no fallback between the two. ``LAUNCHES`` counts kernel launches.
+- ``int8_scan_slots_resident2`` (``_resident2_kernel``): each slot keeps
+  its two best entries; the result is ``([B, 2S] scores, [B, 2S] ids)``,
+  the top-1 table followed by the top-2 table;
+- ``int8_scan_slots`` (``_scan_kernel``, the ``pallas`` flag route) and
+  ``int8_scan_slots_resident`` (``_resident_kernel``, reached by no serving
+  route): each slot keeps its best entry; ``([B, S], [B, S])``.
+
+For B int8 queries against N int8 codes, column j scores
+``f32(i32 dot) * scale[j] + bias[j]`` (bias 0, or ``NEG_INF`` where the mask
+is False) and lands in slot ``j mod S``; a slot keeps its best (score, id)
+under the order "score descending, then id ascending" (the Pallas kernels
+insert with strict ``>`` in ascending column order). ``_scan_kernel`` masks
+with a select rather than the bias: both give ``NEG_INF`` at every reachable
+score, so the tables agree. A table depends on the slot map alone, never on
+how N or B is tiled; the Pallas block sizes below only gate the routes.
+
+Every wrapper takes its plain version for tensors on the CPU and launches
+``csrc/int8_slot_scan.cu`` (in its top-1 or top-2 mode) for tensors on a
+CUDA device; there is no fallback between the two. ``LAUNCHES`` counts
+kernel launches by mode, ``"top1"`` and ``"top2"``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import numpy as np
 import torch
@@ -29,21 +39,49 @@ from .quant import int8_dot
 # the NEG_INF/2 cut of their consumer are in this unit
 NEG_INF = float(np.finfo(np.float32).min)
 
+# the JAX package's block sizes, read at call time by the gates (tests
+# shrink them as the JAX tests do)
+BLOCK_N = 8192
+SLOTS = 1024
+BLOCK_B = 128
 RESIDENT_BLOCK_N = 2048
 RESIDENT_BLOCK_B = 512
+RESIDENT_SLOTS = 512
+RESIDENT_MAX_B = 1024
 RESIDENT2_SLOTS = 256
 RESIDENT2_MAX_B = 2048
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-LAUNCHES = 0
+# kernel launches since the last reset, by mode (chip_smoke.py reads them)
+LAUNCHES: Counter = Counter()
 
 _KERNEL_BLOCK_B = 16  # queries per CUDA block (BT in the source)
+_KERNEL_THREADS = 256  # threads per CUDA block at most, one slot each
 _KERNEL_D_ALIGN = 64  # the kernel stages D in 64-byte chunks
 _KERNEL_MAX_D = 8192  # the query tile [16, D] stays in shared memory
-_KERNEL_MAX_SLOTS = 256  # one thread per slot, __launch_bounds__(256)
+_KERNEL_MAX_SLOTS = {1: 1024, 2: 256}  # by keep; a block holds up to 256 slots
 _BLOCKS_PER_SM = 2  # resident blocks per SM under __launch_bounds__(256, 2)
 _WAVES = 4  # waves of resident blocks the column ranges are cut into
 _REFERENCE_CHUNK = 32768  # columns per step of the plain version
+
+
+def eligible(n: int, d: int, multi: bool, block_n: int | None = None) -> bool:
+    """The shapes the JAX package sends to ``int8_scan_slots`` (the
+    ``pallas`` flag route); the port takes the same gate."""
+    block_n = block_n or BLOCK_N
+    return (not multi) and n >= 2 * block_n and n % block_n == 0 and d % 128 == 0
+
+
+def resident_eligible(
+    n: int, d: int, b: int, multi: bool, block_n: int | None = None
+) -> bool:
+    block_n = block_n or RESIDENT_BLOCK_N
+    return (
+        (not multi)
+        and n >= 2 * block_n
+        and n % block_n == 0
+        and d % 128 == 0
+        and b <= RESIDENT_MAX_B
+    )
 
 
 def resident2_block_b(b: int) -> int:
@@ -71,9 +109,20 @@ def resident2_eligible(
     )
 
 
+# --------------------------------------------------------------------------
+# Plain versions
+# --------------------------------------------------------------------------
+
+
 def _better(sa, ia, sb, ib):
     """(sa, ia) ranks before (sb, ib): score descending, then id ascending."""
     return (sa > sb) | ((sa == sb) & (ia < ib))
+
+
+def merge_top1(a, b):
+    """The better of two (s, i) tables under ``_better``."""
+    a_first = _better(*a, *b)
+    return torch.where(a_first, a[0], b[0]), torch.where(a_first, a[1], b[1])
 
 
 def _merge_top2(a, b):
@@ -95,6 +144,46 @@ def _merge_top2(a, b):
     return s1, i1, s2, i2
 
 
+def empty_table(b: int, slots: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The table every slot starts from: (NEG_INF, -1)."""
+    return (
+        torch.full((b, slots), NEG_INF, dtype=torch.float32, device=device),
+        torch.full((b, slots), -1, dtype=torch.int32, device=device),
+    )
+
+
+def sorted_slot_chunks(n: int, slots: int, score_chunk):
+    """Yield, for each chunk of whole slot rows of N columns, the chunk's
+    scores sorted per slot, ``([B, r, S] scores, [B, r, S] int32 ids)``:
+    a stable descending sort along the r rows, so among equal scores the
+    lower id comes first. ``score_chunk(c0, c1)`` gives the [B, c1 - c0]
+    scores of columns [c0, c1)."""
+    if n % slots:
+        raise ValueError(f"N={n} is not a multiple of slots={slots}")
+    chunk = max(slots, _REFERENCE_CHUNK // slots * slots)
+    slot_iota = None
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        scores = score_chunk(c0, c1)
+        if slot_iota is None:
+            slot_iota = torch.arange(slots, dtype=torch.int32, device=scores.device)
+        r = (c1 - c0) // slots
+        srt, pos = torch.sort(
+            scores.view(scores.shape[0], r, slots), dim=1, descending=True, stable=True
+        )
+        yield srt, (c0 + pos.to(torch.int32) * slots + slot_iota).to(torch.int32)
+
+
+def _int8_chunk_scores(q_codes, codes, scale, mask):
+    def score_chunk(c0, c1):
+        raw = int8_dot(q_codes, codes[c0:c1]).float()
+        bias = torch.where(mask[c0:c1], 0.0, NEG_INF)
+        # two roundings, as the kernel's __fmul_rn / __fadd_rn
+        return raw * scale[c0:c1] + bias
+
+    return score_chunk
+
+
 def int8_scan_slots_resident2_reference(
     q_codes: torch.Tensor,  # [B, D] int8
     codes: torch.Tensor,  # [N, D] int8, N a multiple of slots
@@ -103,70 +192,97 @@ def int8_scan_slots_resident2_reference(
     *,
     slots: int = RESIDENT2_SLOTS,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the slot table, on any device.
+    """Plain PyTorch version of the top-2 slot table, on any device.
 
-    Works in chunks of columns: each chunk's scores reshape to [B, r, S],
-    a stable descending sort along r gives each slot's two best (lower id
-    first among equal scores), and a lexicographic merge folds them into
-    the running table, which starts at (NEG_INF, -1)."""
-    n, _ = codes.shape
-    b = q_codes.shape[0]
-    if n % slots:
-        raise ValueError(f"N={n} is not a multiple of slots={slots}")
-    dev = codes.device
-    empty = (
-        torch.full((b, slots), NEG_INF, dtype=torch.float32, device=dev),
-        torch.full((b, slots), -1, dtype=torch.int32, device=dev),
-    )
+    Works in chunks of columns (``sorted_slot_chunks``): each chunk gives
+    each slot's two best, and a lexicographic merge folds them into the
+    running table, which starts at (NEG_INF, -1)."""
+    empty = empty_table(q_codes.shape[0], slots, codes.device)
     table = empty * 2
-    slot_iota = torch.arange(slots, dtype=torch.int32, device=dev)
-    chunk = max(slots, _REFERENCE_CHUNK // slots * slots)
-    for c0 in range(0, n, chunk):
-        c1 = min(n, c0 + chunk)
-        raw = int8_dot(q_codes, codes[c0:c1]).float()
-        bias = torch.where(mask[c0:c1], 0.0, NEG_INF)
-        # two roundings, as the kernel's __fmul_rn / __fadd_rn
-        scores = raw * scale[c0:c1] + bias
-        r = (c1 - c0) // slots
-        srt, pos = torch.sort(
-            scores.view(b, r, slots), dim=1, descending=True, stable=True
-        )
-        ids = (c0 + pos.to(torch.int32) * slots + slot_iota).to(torch.int32)
-        second = (srt[:, 1], ids[:, 1]) if r > 1 else empty
+    for srt, ids in sorted_slot_chunks(
+        codes.shape[0], slots, _int8_chunk_scores(q_codes, codes, scale, mask)
+    ):
+        second = (srt[:, 1], ids[:, 1]) if srt.shape[1] > 1 else empty
         table = _merge_top2(table, (srt[:, 0], ids[:, 0], *second))
     s1, i1, s2, i2 = table
     return torch.cat([s1, s2], dim=-1), torch.cat([i1, i2], dim=-1)
 
 
-def _kernel_tiling(b: int, n: int, slots: int, sm_count: int) -> tuple[int, int]:
-    """(columns per block, number of column ranges): about ``_WAVES`` waves
-    of resident blocks on a card of ``sm_count`` SMs; a range is a whole
-    number of slot rows."""
-    q_tiles = -(-b // _KERNEL_BLOCK_B)
-    target = sm_count * _BLOCKS_PER_SM * _WAVES
-    want = max(1, -(-target // q_tiles))
+def int8_scan_slots_top1_reference(
+    q_codes: torch.Tensor,  # [B, D] int8
+    codes: torch.Tensor,  # [N, D] int8, N a multiple of slots
+    scale: torch.Tensor,  # [N] f32
+    mask: torch.Tensor,  # [N] bool
+    *,
+    slots: int = SLOTS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the top-1 slot table ([B, S] scores, [B, S]
+    ids), on any device: the chunks of the top-2 version, keeping one entry
+    per slot."""
+    table = empty_table(q_codes.shape[0], slots, codes.device)
+    for srt, ids in sorted_slot_chunks(
+        codes.shape[0], slots, _int8_chunk_scores(q_codes, codes, scale, mask)
+    ):
+        table = merge_top1(table, (srt[:, 0], ids[:, 0]))
+    return table
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel
+# --------------------------------------------------------------------------
+
+
+def kernel_tiling(
+    b: int, n: int, slots: int, sm_count: int, *,
+    block_b: int = _KERNEL_BLOCK_B, blocks_per_sm: int = _BLOCKS_PER_SM,
+) -> tuple[int, int]:
+    """(columns per range, number of ranges) for a slot-scan kernel whose
+    grid is (query tiles of ``block_b``, column ranges, slot groups of up to
+    256 slots): about ``_WAVES`` waves of ``blocks_per_sm`` resident blocks
+    on a card of ``sm_count`` SMs. A range is a whole number of slot rows."""
+    groups = slots // min(slots, _KERNEL_THREADS)
+    tiles = -(-b // block_b) * groups
+    target = sm_count * blocks_per_sm * _WAVES
+    want = max(1, -(-target // tiles))
     rows = n // slots
     rows_per_range = max(1, -(-rows // want))
     n_range = rows_per_range * slots
     return n_range, -(-n // n_range)
 
 
-def _check_kernel_inputs(q_codes, codes, scale, mask, slots):
-    dev = q_codes.device
-    for name, t, dtype in (
-        ("q_codes", q_codes, torch.int8),
-        ("codes", codes, torch.int8),
-        ("scale", scale, torch.float32),
-        ("mask", mask, torch.bool),
-    ):
+def check_slots(slots: int, max_slots: int) -> None:
+    """A block holds min(S, 256) slots, so S is a multiple of 32 up to 256,
+    or a multiple of 256 above."""
+    if slots % 32 or not 32 <= slots <= max_slots or (slots > _KERNEL_THREADS and slots % _KERNEL_THREADS):
+        raise ValueError(
+            f"slots={slots} must be a multiple of 32 in [32, {_KERNEL_THREADS}] "
+            f"or of {_KERNEL_THREADS} up to {max_slots}"
+        )
+
+
+def check_tensors(dev, specs) -> None:
+    """Each (name, tensor, dtype) lies on ``dev``, has the dtype, is
+    contiguous and 16-byte aligned."""
+    for name, t, dtype in specs:
         if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, q_codes on {dev}")
+            raise ValueError(f"{name} on {t.device}, expected {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_kernel_inputs(q_codes, codes, scale, mask, slots, keep=2):
+    if keep not in _KERNEL_MAX_SLOTS:
+        raise ValueError(f"keep={keep} must be 1 or 2")
+    check_tensors(q_codes.device, (
+        ("q_codes", q_codes, torch.int8),
+        ("codes", codes, torch.int8),
+        ("scale", scale, torch.float32),
+        ("mask", mask, torch.bool),
+    ))
     b, d = q_codes.shape
     n = codes.shape[0]
     if codes.shape != (n, d) or scale.shape != (n,) or mask.shape != (n,):
@@ -174,10 +290,7 @@ def _check_kernel_inputs(q_codes, codes, scale, mask, slots):
             f"shapes q {tuple(q_codes.shape)} codes {tuple(codes.shape)} "
             f"scale {tuple(scale.shape)} mask {tuple(mask.shape)} disagree"
         )
-    if slots % 32 or not 32 <= slots <= _KERNEL_MAX_SLOTS:
-        raise ValueError(
-            f"slots={slots} must be a multiple of 32 in [32, {_KERNEL_MAX_SLOTS}]"
-        )
+    check_slots(slots, _KERNEL_MAX_SLOTS[keep])
     if n == 0 or n % slots:
         raise ValueError(f"N={n} must be a positive multiple of slots={slots}")
     if d == 0 or d % _KERNEL_D_ALIGN or d > _KERNEL_MAX_D:
@@ -188,33 +301,49 @@ def _check_kernel_inputs(q_codes, codes, scale, mask, slots):
         raise ValueError("empty query batch")
 
 
-def _launch_kernel(q_codes, codes, scale, mask, slots):
-    global LAUNCHES
-    _check_kernel_inputs(q_codes, codes, scale, mask, slots)
+def _launch_kernel(q_codes, codes, scale, mask, slots, keep):
+    _check_kernel_inputs(q_codes, codes, scale, mask, slots, keep)
     b, d = q_codes.shape
     n = codes.shape[0]
     dev = q_codes.device
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_range, n_ranges = _kernel_tiling(b, n, slots, sm_count)
-    out_s = torch.empty((b, 2 * slots), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, 2 * slots), dtype=torch.int32, device=dev)
-    part_s = torch.empty((n_ranges, b, 2 * slots), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n_ranges, b, 2 * slots), dtype=torch.int32, device=dev)
-    lib = kernels.load("int8_slot_scan")
-    fn = lib.int8_slot_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    n_range, n_ranges = kernel_tiling(b, n, slots, sm_count)
+    width = keep * slots
+    out_s = torch.empty((b, width), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, width), dtype=torch.int32, device=dev)
+    part_s = torch.empty((n_ranges, b, width), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_ranges, b, width), dtype=torch.int32, device=dev)
+    fn = kernels.load("int8_slot_scan").int8_slot_scan
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             q_codes.data_ptr(), codes.data_ptr(), scale.data_ptr(), mask.data_ptr(),
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            b, n, d, slots, n_range, stream,
+            b, n, d, slots, n_range, keep, stream,
         )
     if err != 0:
-        raise RuntimeError(f"int8_slot_scan launch failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"int8_slot_scan (keep={keep}) launch failed: CUDA error {err}")
+    LAUNCHES[f"top{keep}"] += 1
     return out_s, out_i
+
+
+def _dispatch(q_codes, codes, scale, mask, slots, keep):
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    if q_codes.device.type == "cpu":
+        reference = (
+            int8_scan_slots_top1_reference if keep == 1 else int8_scan_slots_resident2_reference
+        )
+        return reference(q_codes, codes, scale, mask, slots=slots)
+    if q_codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_codes.device}")
+    return _launch_kernel(q_codes, codes, scale, mask, slots, keep)
+
+
+# --------------------------------------------------------------------------
+# The wrappers (the JAX package's signatures)
+# --------------------------------------------------------------------------
 
 
 def int8_scan_slots_resident2(
@@ -228,10 +357,52 @@ def int8_scan_slots_resident2(
     """([B, 2S] slot scores, [B, 2S] slot ids): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (raising on what it does not
     take)."""
-    if q_codes.device.type == "cpu":
-        return int8_scan_slots_resident2_reference(
-            q_codes, codes, scale, mask, slots=slots
-        )
-    if q_codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {q_codes.device}")
-    return _launch_kernel(q_codes, codes, scale, mask, slots)
+    return _dispatch(q_codes, codes, scale, mask, slots, keep=2)
+
+
+def int8_scan_slots(
+    q_codes: torch.Tensor,  # [B, D] int8 quantized queries
+    codes: torch.Tensor,  # [N, D] int8 (N a multiple of block_n)
+    scale: torch.Tensor,  # [N] f32
+    mask: torch.Tensor,  # [N] bool
+    *,
+    block_n: int | None = None,
+    slots: int | None = None,
+    block_b: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """([B, S] slot scores, [B, S] slot ids), top-1 per slot ``j mod S``.
+    Asserts what the Pallas wrapper asserts; the kernel tiles on its own."""
+    block_n = block_n or BLOCK_N
+    slots = slots or SLOTS
+    n, b = codes.shape[0], q_codes.shape[0]
+    if block_b is None:
+        block_b = min(b, BLOCK_B)
+        while b % block_b:
+            block_b -= 1
+    assert n % block_n == 0, (n, block_n)
+    assert b % block_b == 0, (b, block_b)
+    assert block_n % slots == 0 and block_n >= slots, (block_n, slots)
+    return _dispatch(q_codes, codes, scale, mask, slots, keep=1)
+
+
+def int8_scan_slots_resident(
+    q_codes: torch.Tensor,  # [B, D] int8 (B a multiple of block_b, <= RESIDENT_MAX_B)
+    codes: torch.Tensor,  # [N, D] int8 (N a multiple of block_n)
+    scale: torch.Tensor,  # [N] f32
+    mask: torch.Tensor,  # [N] bool
+    *,
+    block_n: int | None = None,
+    slots: int | None = None,
+    block_b: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """([B, S] slot scores, [B, S] slot ids): the same top-1 table as
+    ``int8_scan_slots``, under the resident Pallas wrapper's asserts."""
+    block_n = block_n or RESIDENT_BLOCK_N
+    slots = slots or RESIDENT_SLOTS
+    n, b = codes.shape[0], q_codes.shape[0]
+    if block_b is None:
+        block_b = min(b, RESIDENT_BLOCK_B)
+    assert n % block_n == 0, (n, block_n)
+    assert b % block_b == 0 and b <= RESIDENT_MAX_B, (b, block_b)
+    assert block_n % slots == 0 and block_n >= slots, (block_n, slots)
+    return _dispatch(q_codes, codes, scale, mask, slots, keep=1)

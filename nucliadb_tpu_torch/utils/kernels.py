@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/kernels/`` at the repository root, named after a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is reused.
+``build/kernels/`` at the repository root, named after a hash of every file
+under ``csrc/`` (a source may include a shared header) and the flags, so an
+edited source or header rebuilds and an unchanged tree is reused.
 The library is loaded with ``ctypes``. Nothing is compiled or loaded at
 import time: this module is imported on machines without ``nvcc``.
 """
@@ -41,10 +42,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives (hash of source + flags)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the build of ``csrc/<name>.cu`` lives: a hash of the source,
+    of every other file under ``csrc/`` (the headers it may include) and of
+    the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(str(path.relative_to(CSRC)).encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

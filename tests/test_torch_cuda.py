@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from nucliadb_tpu_torch.ops import slot_scan
+from nucliadb_tpu_torch.ops import binary_scan, quant, slot_scan
 from torch_test_helpers import CASES, assert_same_results
 
 pytestmark = pytest.mark.cuda
@@ -30,9 +30,9 @@ def test_kernel_matches_plain_version(case, slots):
     _need_card()
     arrays = CASES[case](np.random.default_rng(12), slots)
     args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
-    launches = slot_scan.LAUNCHES
+    launches = slot_scan.LAUNCHES["top2"]
     ks, ki = slot_scan.int8_scan_slots_resident2(*args, slots=slots)
-    assert slot_scan.LAUNCHES == launches + 1
+    assert slot_scan.LAUNCHES["top2"] == launches + 1
     rs, ri = slot_scan.int8_scan_slots_resident2_reference(*args, slots=slots)
     torch.cuda.synchronize()
     assert torch.equal(ks.view(torch.int32), rs.view(torch.int32))
@@ -67,11 +67,107 @@ def test_cuda_index_matches_cpu_index(tmp_path):
         cpu = VectorSearcher(cfg, idx, device="cpu")
     assert torch.equal(gpu.index.codes.codes.cpu(), cpu.index.codes.codes)
     for dedup in (True, False):
-        launches = slot_scan.LAUNCHES
+        launches = slot_scan.LAUNCHES["top2"]
         gs, gi = gpu.index.search(q, 10, with_duplicates=not dedup)
-        assert slot_scan.LAUNCHES == launches + 1
+        assert slot_scan.LAUNCHES["top2"] == launches + 1
         cs, ci = cpu.index.search(q, 10, with_duplicates=not dedup)
         assert_same_results(cs, ci, gs, gi)
         top = {gpu.index.keys[i] for i in gi[0]}
         n_dup = len(top & {"r0/f/0", "dup/f/0", "dup/f/1", "dup/f/2"})
         assert n_dup == (1 if dedup else 4)
+
+
+def _bits_equal(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("wrapper", ["int8_scan_slots", "int8_scan_slots_resident"])
+@pytest.mark.parametrize("slots", [256, 512, 1024])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_top1_kernel_matches_plain_version(case, slots, wrapper):
+    """The top-1 mode through both wrappers: bit-identical to the plain
+    version, one counted launch each."""
+    _need_card()
+    arrays = CASES[case](np.random.default_rng(14), slots)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+    launches = dict(slot_scan.LAUNCHES)
+    got = getattr(slot_scan, wrapper)(*args, block_n=1024, slots=slots)
+    assert slot_scan.LAUNCHES["top1"] == launches.get("top1", 0) + 1
+    assert slot_scan.LAUNCHES["top2"] == launches.get("top2", 0)
+    want = slot_scan.int8_scan_slots_top1_reference(*args, slots=slots)
+    torch.cuda.synchronize()
+    _bits_equal(got, want)
+
+
+def _binary_args(rng, n, b, d=128, slots=256):
+    """Codes and query parameters made by the port's own encoders from
+    numpy vectors; a masked range; planted equal columns."""
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    for pid in (100, 100 + slots, 100 + 2 * slots, 101):
+        v[pid] = v[100]
+    mask = np.ones(n, bool)
+    mask[512:1024] = False
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q[1] = v[100]
+    bc = quant.BinaryCodes.encode(torch.from_numpy(v).cuda())
+    params = quant.binary_query_params(torch.from_numpy(q).cuda())
+    return (*params, bc.codes_t, bc.scale, bc.popcnt, bc.resid, torch.from_numpy(mask).cuda())
+
+
+@pytest.mark.parametrize("b", [8, 40, 64])
+@pytest.mark.parametrize("slots", [256, 1024])
+def test_binary_kernel_matches_plain_version(b, slots):
+    _need_card()
+    args = _binary_args(np.random.default_rng(15), 4096, b, slots=slots)
+    launches = binary_scan.LAUNCHES["binary"]
+    got = binary_scan.binary_scan_slots(*args, dim=128, block_n=1024, slots=slots)
+    assert binary_scan.LAUNCHES["binary"] == launches + 1
+    want = binary_scan.binary_scan_slots_reference(*args, dim=128, slots=slots)
+    torch.cuda.synchronize()
+    _bits_equal(got, want)
+    assert int(got[1][1, 100]) == 100  # the planted tie keeps the lower id
+
+
+@pytest.mark.parametrize("quantization", ["int8", "binary"])
+def test_cuda_pallas_index_matches_cpu_index(tmp_path, quantization):
+    """The ``pallas`` flag routes on a cuda index (kernels) and a cpu index
+    (plain versions): the same results, near-tied exact scores aside. Binary
+    codes are encoded on each device, so their f32 scalars may differ in the
+    last place (sums in another order)."""
+    _need_card()
+    from unittest import mock
+
+    import nucliadb_tpu_torch.index.vector.device as tdevice
+    from nucliadb_tpu_torch.index.vector import (
+        Elem, Seq, SimpleOpenIndex, VectorConfig, VectorSearcher, create_segment,
+    )
+
+    rng = np.random.default_rng(16)
+    v = rng.standard_normal((3000, 128)).astype(np.float32)
+    cfg = VectorConfig(dimension=128, quantization=quantization, flags=["pallas"])
+    elems = [Elem(key=f"r{i % 7}/f/{i}", vectors=v[i]) for i in range(3000)]
+    elems += [Elem(key=f"dup/f/{j}", vectors=v[0]) for j in range(3)]
+    idx = SimpleOpenIndex(segment_list=[(create_segment(str(tmp_path / "s"), elems, cfg), Seq(1))])
+    q = rng.standard_normal((100, 128)).astype(np.float32)
+    q[0] = v[0] + 0.01 * q[0]
+    with mock.patch.object(tdevice, "EXACT_SCAN_THRESHOLD", 256), mock.patch.object(
+        slot_scan, "BLOCK_N", 512
+    ), mock.patch.object(slot_scan, "SLOTS", 256), mock.patch.object(
+        binary_scan, "BINARY_BLOCK_N", 512
+    ):
+        gpu = VectorSearcher(cfg, idx, device="cuda")
+        cpu = VectorSearcher(cfg, idx, device="cpu")
+        for n_queries in (5, 100):
+            for dedup in (True, False):
+                before = (slot_scan.LAUNCHES["top1"], binary_scan.LAUNCHES["binary"])
+                gs, gi = gpu.index.search(q[:n_queries], 10, with_duplicates=not dedup)
+                after = (slot_scan.LAUNCHES["top1"], binary_scan.LAUNCHES["binary"])
+                kernel = quantization == "int8" or n_queries <= 64
+                grown = (int(kernel and quantization == "int8"), int(kernel and quantization == "binary"))
+                assert (after[0] - before[0], after[1] - before[1]) == grown
+                cs, ci = cpu.index.search(q[:n_queries], 10, with_duplicates=not dedup)
+                assert_same_results(cs, ci, gs, gi)
+                top = {gpu.index.keys[i] for i in gi[0]}
+                n_dup = len(top & {"r0/f/0", "dup/f/0", "dup/f/1", "dup/f/2"})
+                assert n_dup == (1 if dedup else 4)

@@ -24,7 +24,8 @@ _SCRIPT = textwrap.dedent(
     from nucliadb_tpu_torch.index.vector import (
         Elem, VectorConfig, VectorSearcher, VectorSearchRequest, create_segment,
     )
-    from nucliadb_tpu_torch.ops import distance, quant, slot_scan, topk
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.ops import binary_scan, distance, quant, slot_scan, topk
     from nucliadb_tpu.types import Seq, SimpleOpenIndex
 
     rng = np.random.default_rng(0)
@@ -35,6 +36,21 @@ _SCRIPT = textwrap.dedent(
         searcher = VectorSearcher(cfg, SimpleOpenIndex(segment_list=[(meta, Seq(1))]), device="cpu")
         hits = searcher.search(VectorSearchRequest(vectors=v[7], top_k=3))
     assert hits[0][0].key == "r/7", hits
+
+    # binary codes + "pallas": the popcount slot scan's plain version
+    device.EXACT_SCAN_THRESHOLD = 256
+    slot_scan.SLOTS, binary_scan.BINARY_BLOCK_N = 256, 512
+    v = rng.standard_normal((1500, 128)).astype(np.float32)
+    cfg = VectorConfig(dimension=128, quantization="binary", flags=["pallas"])
+    with tempfile.TemporaryDirectory() as d:
+        meta = create_segment(d + "/s", [Elem(key=f"r/{i:04d}", vectors=v[i]) for i in range(1500)], cfg)
+        searcher = VectorSearcher(cfg, SimpleOpenIndex(segment_list=[(meta, Seq(1))]), device="cpu")
+        calls = []
+        real = binary_scan.binary_scan_slots
+        binary_scan.binary_scan_slots = lambda *a, **k: calls.append(1) or real(*a, **k)
+        hits = searcher.search(VectorSearchRequest(vectors=v[[7, 900]], top_k=3))
+    assert isinstance(searcher.index.codes, quant.BinaryCodes) and calls == [1], calls
+    assert [h[0].key for h in hits] == ["r/0007", "r/0900"], hits
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not loaded, loaded
     print("OK")
