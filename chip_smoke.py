@@ -5,8 +5,8 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 
     python3 chip_smoke.py
 
-It drives the port's vector-search paths, the semantic leg of /find, once
-at full size, in phases that each print one line:
+It drives the port's vector-search paths, the semantic leg of /find, and
+its keyword leg once at full size, in phases that each print one line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
@@ -41,7 +41,35 @@ at full size, in phases that each print one line:
    the first 1024 must reach 0.95; filtered requests return only
    labelled, undeleted paragraphs; a min_score result is the floored full
    result;
-5. breakdown, after each slice: its device time by layer and its host time.
+5. breakdown, after each slice: its device time by layer and its host time;
+6. keyword: bench_suite.py config 3's corpus (its 20,007-word vocabulary,
+   24 zipf(1.3) tokens a paragraph, 2 % of paragraphs starting "quick brown
+   fox", a ``created`` column, a label on every tenth paragraph) at
+   1,000,000 paragraphs of 100,000 resources, written by the port's builder
+   as segments of 326,000 x 3 and 22,000 plus a deleted resource, and a
+   document index of the same resources. Through
+   ``ParagraphSearcher(..., device="cuda")`` and ``TextSearcher``:
+   - the device route (the host WAND tier off), counted: bench_suite.py's
+     512 OR fuzzy queries and 512 AND queries through ``search_batch``, one
+     ``search`` with the matched bitmap, label-filtered, key-prefix,
+     excluded-term and ``min_score`` requests, a quoted phrase and an
+     ``advanced_query`` request, 64 requests from 8 threads (which must
+     share the coalescer's dispatches) and 16 document requests (one
+     ordered by ``created``); every call must dispatch the device program
+     (``ops.bm25.DISPATCHES``);
+   - checks: a float64 NumPy BM25 oracle with the engine's own plan and
+     mask (64 queries of each batch and every single request: ids equal up
+     to ties, scores within 1e-5, exact matched counts), each batch run
+     twice with identical bits, no deleted or filtered-out paragraph;
+   - the default route: the OR batch on the host WAND tier (when
+     ``nucliadb_tpu_native`` loads: no dispatch, the device's answers up to
+     ties), and a batch of high-df AND pairs the cost model sends to the
+     device;
+   - a breakdown of the device program by stage (CUDA events) with the
+     scatter's deterministic and atomic forms, host planning and hits, and
+     whole batches on both routes;
+   - a refresh adding 2,000 paragraphs: 3 groups reused, under a tenth of
+     the first build's upload, answers bit-identical to a fresh build.
 
 It then prints the kernels' JSON line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero and prints no result. It imports
@@ -623,6 +651,530 @@ def phase_binary_breakdown(torch, searcher, q_np):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the keyword leg: BM25 over 1,000,000 paragraphs (bench_suite.py config 3)
+# ---------------------------------------------------------------------------
+
+KW_FULL = {
+    "resources": 100_000,  # 10 paragraphs each
+    "segments": (326_000, 326_000, 326_000, 22_000),  # 3 full-width groups + the fresh group
+    "refresh": 2_000,  # paragraphs appended by the refresh
+    "batch": 512,  # the coalescer's cap
+    "oracle": 64,  # queries of each batch held to the float64 oracle
+    "threads": 8,
+    "threaded": 64,  # unfiltered requests through ParagraphSearcher.search from the threads
+    "doc_requests": 16,  # TextSearcher.search requests
+    "heavy_and": 64,  # AND queries of high-df pairs for the default route
+}
+KW_TOP_K = 20
+KW_RTOL = 1e-5
+
+
+def kw_vocab() -> list[str]:
+    """bench_suite.py's vocabulary: 20,000 random letter strings
+    (default_rng(7)) and the seven words the queries plant."""
+    rng = np.random.default_rng(7)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    seen = {"quick", "brown", "fox", "lazy", "dog", "search", "database"}
+    out = []
+    while len(out) < 20_000:
+        w = "".join(letters[rng.integers(0, 26, int(rng.integers(5, 10)))])
+        if w not in seen:
+            seen.add(w)
+            out.append(w)
+    return out + ["quick", "brown", "fox", "lazy", "dog", "search", "database"]
+
+
+def kw_texts(words, n, seed):
+    """bench_suite.py config 3's paragraphs: 24 zipf(1.3) token ids each, 2 %
+    of them starting "quick brown fox". Returns (texts, the zipf ids)."""
+    rng = np.random.default_rng(seed)
+    zipf = np.minimum(rng.zipf(1.3, size=(n, 24)) - 1, len(words) - 8)
+    hot = rng.random(n) < 0.02
+    ids = zipf.copy()
+    ids[hot, :3] = [words.index("quick"), words.index("brown"), words.index("fox")]
+    vocab = np.asarray(words, dtype=object)
+    return [" ".join(row) for row in vocab[ids].tolist()], zipf
+
+
+class KwCorpus:
+    """The keyword corpus on disk: paragraph segments (plus the refresh
+    segment), the document index of the same resources, and the queries."""
+
+    def __init__(self, tmp, cfg):
+        from nucliadb_tpu_torch.index.text_engine import TextQuery
+        from nucliadb_tpu_torch.index.text_engine.builder import DocEntry, build_segment
+        from nucliadb_tpu_torch.index.vector import Seq, SimpleOpenIndex
+
+        t0 = time.perf_counter()
+        self.words = words = kw_vocab()
+        n = self.n = cfg["resources"] * 10
+        if sum(cfg["segments"]) != n:
+            raise ValueError(f"segments {cfg['segments']} do not add up to {n} paragraphs")
+        texts, zipf = kw_texts(words, n, 11)
+        ref_texts, _ = kw_texts(words, cfg["refresh"], 12)
+        self.t_gen = time.perf_counter() - t0
+
+        def para(i, text):
+            facets = ["/t/t", "/l/tenth"] if i % 10 == 0 else ["/t/t"]
+            return DocEntry(key=key_of(i), text=text, facets=facets, columns={"created": i})
+
+        segs, lo = [], 0
+        for s, size in enumerate(cfg["segments"]):
+            docs = [para(i, texts[i]) for i in range(lo, lo + size)]
+            segs.append((build_segment(f"{tmp}/kw{s}", docs, kind="paragraph"), Seq(s + 1)))
+            lo += size
+        refresh = build_segment(
+            f"{tmp}/kw_refresh", [para(n + i, t) for i, t in enumerate(ref_texts)], kind="paragraph"
+        )
+        dels = [(DELETED, Seq(len(segs) + 2))]
+        self.first = SimpleOpenIndex(segment_list=segs, deletion_list=dels)
+        self.second = SimpleOpenIndex(segment_list=segs + [(refresh, Seq(len(segs) + 1))], deletion_list=dels)
+        self.t_para = time.perf_counter() - t0 - self.t_gen
+        docs = [
+            DocEntry(
+                key=f"r{r:06d}/t/text", text=" ".join(texts[r * 10 : r * 10 + 10]),
+                facets=["/l/tenth"] if r % 10 == 0 else [], columns={"created": r, "modified": r},
+            )
+            for r in range(cfg["resources"])
+        ]
+        text_seg = build_segment(f"{tmp}/kw_docs", docs, kind="text", store_text=True)
+        self.documents = SimpleOpenIndex(segment_list=[(text_seg, Seq(1))], deletion_list=dels)
+        self.t_docs = time.perf_counter() - t0 - self.t_gen - self.t_para
+        del texts, docs
+
+        # bench_suite.py's OR batch (two of the first 2,000 words and a typo,
+        # fuzzy d=1) and AND batch (the first two tokens of a random paragraph)
+        rng_q = np.random.default_rng(23)
+        self.or_q = []
+        for i in range(cfg["batch"]):
+            t1, t2 = words[int(rng_q.integers(0, 2000))], words[int(rng_q.integers(0, 2000))]
+            typo = "quikc" if i % 2 else "borwn"
+            self.or_q.append(TextQuery(text=f"{t1} {t2} {typo}", top_k=KW_TOP_K, fuzzy=True))
+        rng_a = np.random.default_rng(31)
+        self.and_q = []
+        for i in range(cfg["batch"]):
+            toks = [words[j] for j in zipf[int(rng_a.integers(0, n))][:2]]
+            self.and_q.append(
+                TextQuery(text=f"{toks[0]} {toks[1]}", top_k=KW_TOP_K, fuzzy=bool(i % 2), all_terms=True)
+            )
+        # pairs of the most frequent words: far above the host tier's AND cap
+        self.heavy_and = [
+            TextQuery(text=f"{words[a]} {words[b]}", top_k=KW_TOP_K, all_terms=True)
+            for a in range(1, 9) for b in range(a + 1, 10)
+        ][: cfg["heavy_and"]]
+
+
+class KwOracle:
+    """Float64 NumPy BM25 from the segments' postings, with the engine's own
+    plan (terms, weights, ``required``) and mask. Paragraphs hold 24 tokens,
+    so no tf reaches the dense columns' clip at 255."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.dl = np.concatenate([np.maximum(np.asarray(s.dlen), 1) for s in engine.segments]).astype(np.float64)
+        self._postings = {}
+
+    def postings(self, term):
+        import bisect
+
+        hit = self._postings.get(term)
+        if hit is None:
+            docs, tfs = [], []
+            for seg, (lo, _hi) in zip(self.engine.segments, self.engine.seg_bounds):
+                ti = bisect.bisect_left(seg.terms, term)
+                if ti < len(seg.terms) and seg.terms[ti] == term:
+                    a, b = int(seg.postings_offsets[ti]), int(seg.postings_offsets[ti + 1])
+                    docs.append(np.asarray(seg.postings_docs[a:b], np.int64) + lo)
+                    tfs.append(np.asarray(seg.postings_tfs[a:b], np.float64))
+            hit = self._postings[term] = (
+                np.concatenate(docs) if docs else np.zeros(0, np.int64),
+                np.concatenate(tfs) if tfs else np.zeros(0),
+            )
+        return hit
+
+    def run(self, q, mask=None):
+        """(top ids, their scores, matched count, matched bitmap, all scores)."""
+        from nucliadb_tpu_torch.index.text_engine.engine import IMPOSSIBLE_REQUIRED
+
+        e = self.engine
+        n = e.n_docs
+        if mask is None:
+            mask = e.build_mask(q)[:n]
+        terms, required = e._plan_terms(q)
+        s = np.zeros(n)
+        cnt = np.zeros(n, np.int32)
+        n_sched = 0
+        for term, weight in terms:
+            df = e.term_df(term)
+            if df == 0:
+                continue
+            n_sched += 1
+            d, tf = self.postings(term)
+            w = weight * e.idf(df)
+            s[d] += w * tf * 2.2 / (tf + 1.2 * (0.25 + 0.75 * self.dl[d] / e.avgdl))
+            cnt[d] += 1
+        req = IMPOSSIBLE_REQUIRED if required >= IMPOSSIBLE_REQUIRED else max(min(required, n_sched), 1)
+        matched = (cnt >= req) & mask
+        ok = matched if q.min_score is None else matched & (s >= float(np.float32(q.min_score)))
+        idx = np.flatnonzero(ok)
+        if len(idx) > q.top_k:
+            thr = np.partition(s[idx], len(idx) - q.top_k)[len(idx) - q.top_k]
+            idx = idx[s[idx] >= thr]
+        idx = idx[np.lexsort((idx, -s[idx]))][: q.top_k]
+        if q.all_terms and q.fuzzy and q.text.strip():
+            idx = np.array([d for d in idx if e.verify_all_terms(int(d), q)], np.int64)
+        return idx, s[idx], int(matched.sum()), matched, s
+
+
+def kw_check_hits(oracle, q, hits, matched, what, mask=None):
+    """The device's (or the tier's) answer against the oracle: the same
+    number of hits, each rank's score within KW_RTOL of the oracle's, every
+    returned paragraph matched and scored as that rank (ids equal up to
+    ties), and the exact matched count or bitmap."""
+    o_ids, o_s, o_count, o_matched, s_full = oracle.run(q, mask)
+    check(len(hits) == len(o_ids), f"{what}: {len(hits)} hits, oracle {len(o_ids)}")
+    got = np.array([h.doc_id for h in hits], np.int64)
+    got_s = np.array([h.score for h in hits])
+    tol = KW_RTOL * np.abs(o_s) + 1e-6
+    check(bool(np.all(np.abs(got_s - o_s) <= tol)), f"{what}: scores differ from the oracle")
+    check(len(set(got.tolist())) == len(got) and bool(o_matched[got].all()), f"{what}: an unmatched or repeated id")
+    check(bool(np.all(np.abs(s_full[got] - o_s) <= tol)), f"{what}: an id outside the oracle's ties")
+    if isinstance(matched, np.ndarray):
+        check(bool(np.array_equal(matched, o_matched)), f"{what}: matched bitmap differs")
+    elif matched.sum() >= 0:
+        check(matched.sum() == o_count, f"{what}: matched count {matched.sum()} != {o_count}")
+    return o_s
+
+
+def kw_same(a, b, what):
+    """Two answers of one query equal up to ties: scores rank by rank within
+    KW_RTOL, and the same ids above the tie band at the cut."""
+    check(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} hits")
+    if not a:
+        return
+    sa, sb = np.array([h.score for h in a]), np.array([h.score for h in b])
+    check(bool(np.all(np.abs(sa - sb) <= KW_RTOL * np.abs(sa) + 1e-6)), f"{what}: scores differ")
+    band = sa[-1] * (1 + KW_RTOL) + 1e-6
+    check({h.doc_id for h in a if h.score > band} == {h.doc_id for h in b if h.score > band}, f"{what}: ids differ")
+
+
+def kw_bits(results):
+    return [[(h.doc_id, h.score, h.term_count) for h in hits] for hits, _ in results]
+
+
+def kw_dispatched(bm25, fn, what):
+    """Runs ``fn`` and checks the device program was dispatched for it."""
+    before = bm25.DISPATCHES.total()
+    out = fn()
+    check(bm25.DISPATCHES.total() > before, f"{what}: the device program was not dispatched")
+    return out
+
+
+def phase_keyword(torch, tmp, cfg, device="cuda"):
+    """The keyword leg on ``device`` (see the module docstring); prints one
+    line per part and returns the device-program dispatches of the counted
+    main path."""
+    import threading
+
+    from nucliadb_tpu_torch.index.paragraph import ParagraphSearcher, ParagraphSearchRequest, advanced_query_mask
+    from nucliadb_tpu_torch.index.text import DocumentSearchRequest, TextSearcher
+    from nucliadb_tpu_torch.index.text_engine import engine as engine_mod
+    from nucliadb_tpu_torch.index.text_engine import host_tier
+    from nucliadb_tpu_torch.index.text_engine.batcher import coalescer
+    from nucliadb_tpu_torch.index.text_engine.engine import TextQuery
+    from nucliadb_tpu_torch.index.text_engine.tokenizer import tokenize
+    from nucliadb_tpu_torch.index.vector import LabelAtom
+    from nucliadb_tpu_torch.ops import bm25
+
+    corpus = KwCorpus(tmp, cfg)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    up0, t = engine_mod.UPLOAD_BYTES, time.perf_counter()
+    para = ParagraphSearcher(corpus.first, device=device)
+    sync()
+    t_open, first_upload = time.perf_counter() - t, engine_mod.UPLOAD_BYTES - up0
+    engine = para.engine
+    mem = torch.cuda.memory_allocated() if device == "cuda" else 0
+    check(engine.n_docs == corpus.n and len(engine.groups) == len(cfg["segments"]), f"{len(engine.groups)} groups")
+    check(engine.keys[:2] == [key_of(0), key_of(1)], "paragraph ids out of generation order")
+    docs = TextSearcher(corpus.documents, device=device)
+    oracle, doc_oracle = KwOracle(engine), KwOracle(docs.engine)
+    tier = engine.host_tier()
+    engine._host_tier_cached = None  # the device route (bench_suite.py:289)
+    docs.engine._host_tier_cached = None
+    or_q, and_q = corpus.or_q, corpus.and_q
+    words = corpus.words
+    single_q = TextQuery(text="quick brown fxo", top_k=KW_TOP_K, fuzzy=True, phrases=["quick brown"])
+    label_q = TextQuery(text=or_q[1].text, top_k=KW_TOP_K, fuzzy=True, filter=LabelAtom("/l/tenth"))
+    prefix_q = TextQuery(text="quick fox", top_k=KW_TOP_K, key_prefixes=["r00"])
+    excl_q = TextQuery(text="quick brown", top_k=KW_TOP_K, fuzzy=True, excluded=["fox"])
+    floor_q = TextQuery(text=or_q[2].text, top_k=KW_TOP_K, fuzzy=True, min_score=8.0)
+    phrase_req = ParagraphSearchRequest(query='"quick brown"', top_k=KW_TOP_K)
+    adv_req = ParagraphSearchRequest(query="quick", top_k=KW_TOP_K, advanced_query=f"brown -fox {words[5]}")
+    doc_reqs = [
+        DocumentSearchRequest(query=" ".join(q.text.split()[:2]), top_k=KW_TOP_K) for q in or_q[: cfg["doc_requests"] - 1]
+    ] + [DocumentSearchRequest(query="quick fox", top_k=KW_TOP_K, order_by="created")]
+    threaded = [ParagraphSearchRequest(query=q.text, top_k=KW_TOP_K) for q in or_q[: cfg["threaded"]]]
+    threaded_out = {}
+
+    def worker(reqs):
+        for r in reqs:
+            threaded_out[r.query] = para.search(r)
+
+    # ---- the main path on the device route, counted ------------------------
+    bm25.DISPATCHES.clear()
+    coalesced0 = coalescer.dispatches
+    or_out = kw_dispatched(bm25, lambda: engine.search_batch(or_q, need_matched=False), "OR batch")
+    and_out = kw_dispatched(bm25, lambda: engine.search_batch(and_q, need_matched=False), "AND batch")
+    single = kw_dispatched(bm25, lambda: engine.search(single_q, need_matched=True), "single request")
+    filtered = {
+        name: kw_dispatched(bm25, lambda q=q: engine.search(q, need_matched=False), name)
+        for name, q in (("label", label_q), ("key prefix", prefix_q), ("excluded term", excl_q), ("min_score", floor_q))
+    }
+    phrase_resp = kw_dispatched(bm25, lambda: para.search(phrase_req), "phrase request")
+    adv_resp = kw_dispatched(bm25, lambda: para.search(adv_req), "advanced_query request")
+    threads = [threading.Thread(target=worker, args=(threaded[i :: cfg["threads"]],)) for i in range(cfg["threads"])]
+    kw_dispatched(bm25, lambda: [th.start() for th in threads] + [th.join(timeout=600) for th in threads], "threaded requests")
+    doc_resps = [kw_dispatched(bm25, lambda r=r: docs.search(r), f"document request {i}") for i, r in enumerate(doc_reqs)]
+    dispatches = dict(bm25.DISPATCHES)
+    coalesced = coalescer.dispatches - coalesced0
+    # -----------------------------------------------------------------------
+    check(not any(th.is_alive() for th in threads) and len(threaded_out) == len(threaded), "threaded requests did not finish")
+    check(coalesced < len(threaded), f"{len(threaded)} threaded requests took {coalesced} dispatches")
+
+    # the float64 oracle, determinism, filters
+    n_oracle = cfg["oracle"]
+    for name, queries, out in (("OR", or_q, or_out), ("AND", and_q, and_out)):
+        check(len(out) == len(queries), f"{name} batch: {len(out)} results")
+        for i in range(n_oracle):
+            kw_check_hits(oracle, queries[i], out[i][0], out[i][1], f"{name} query {i}")
+        again = engine.search_batch(queries, need_matched=False)
+        check(kw_bits(again) == kw_bits(out), f"{name} batch: two runs differ")
+    kw_check_hits(oracle, single_q, *single, "single request (matched bitmap)")
+    for name, q in (("label", label_q), ("key prefix", prefix_q), ("excluded term", excl_q), ("min_score", floor_q)):
+        kw_check_hits(oracle, q, *filtered[name], f"{name} request")
+    deleted = set(range(int(DELETED[1:-1]) * 10, int(DELETED[1:-1]) * 10 + 10))
+    every = [h for hits, _ in or_out + and_out for h in hits] + [h for hits, _ in filtered.values() for h in hits]
+    check(not any(h.doc_id in deleted or h.key.startswith(DELETED) for h in every), "a deleted paragraph came back")
+    check(all(h.doc_id % 10 == 0 for h in filtered["label"][0]), "label filter")
+    check(all(h.key.startswith("r00") for h in filtered["key prefix"][0]), "key-prefix filter")
+    check(not any(engine.doc_has_term(h.doc_id, "fox") for h in filtered["excluded term"][0]), "excluded term")
+    check(all(h.score >= 8.0 for h in filtered["min_score"][0]), "min_score floor")
+    pm = para._phrase_mask([tokenize("quick brown")])
+    q = TextQuery(text=" ", phrases=["quick brown"], top_k=KW_TOP_K, fuzzy=True, extra_mask=pm)
+    o_s = kw_check_hits(oracle, q, [engine_hit(h) for h in phrase_resp.hits], _no_count(), "phrase request")
+    check(len(o_s) == KW_TOP_K, "phrase request: fewer than top_k hits")
+    q = TextQuery(text="quick", top_k=KW_TOP_K, fuzzy=True, extra_mask=advanced_query_mask(engine, adv_req.advanced_query))
+    kw_check_hits(oracle, q, [engine_hit(h) for h in adv_resp.hits], _no_count(), "advanced_query request")
+    for i, req in enumerate(threaded):
+        got = [(h.doc_id, h.score) for h in threaded_out[req.query].hits]
+        check(got == [(h.doc_id, h.score) for h in or_out[i][0]], f"threaded request {i} differs from its batch answer")
+    doc_ids = {k: i for i, k in enumerate(docs.engine.keys)}
+    for i, (req, resp) in enumerate(zip(doc_reqs[:-1], doc_resps)):
+        hits = [engine_hit(h, doc_ids[h.key]) for h in resp.hits]
+        q = TextQuery(text=req.query, top_k=KW_TOP_K)
+        _, _, count, _, _ = doc_oracle.run(q)
+        kw_check_hits(doc_oracle, q, hits, _no_count(), f"document request {i}")
+        check(resp.total == count, f"document request {i}: total {resp.total} != {count}")
+    _, _, _, o_matched, _ = doc_oracle.run(TextQuery(text="quick fox", top_k=KW_TOP_K))
+    created = docs.engine.columns["created"]
+    want = np.flatnonzero(o_matched)[np.argsort(created[o_matched], kind="stable")[::-1]][:KW_TOP_K]
+    check([doc_ids[h.key] for h in doc_resps[-1].hits] == want.tolist(), "order_by=created differs from the oracle")
+    print(
+        f"keyword device route: {corpus.n} paragraphs ({len(engine.groups)} groups, n_pad {engine.n_pad}), "
+        f"{len(docs.engine.keys)} documents; gen {corpus.t_gen:.1f}s, paragraph segments {corpus.t_para:.1f}s, "
+        f"document segment {corpus.t_docs:.1f}s, ParagraphSearcher open {t_open:.1f}s ({first_upload / 2**20:.1f} MiB "
+        f"uploaded, {mem / 2**30:.2f} GiB on the card); dispatches {dispatches}; {len(threaded)} threaded requests "
+        f"in {coalesced} coalesced dispatches; oracle (float64) agrees on {n_oracle} OR + {n_oracle} AND queries, "
+        f"the single, 4 filtered, phrase, advanced_query and {len(doc_reqs) - 1} document requests; "
+        f"both batches bit-identical on a second run",
+        flush=True,
+    )
+
+    # ---- the default route (the cost model) --------------------------------
+    engine._host_tier_cached = tier
+    before = bm25.DISPATCHES.total()
+    host_out = engine.search_batch(or_q, need_matched=False)
+    host_dispatches = bm25.DISPATCHES.total() - before
+    if tier is not None:
+        check(host_dispatches == 0, f"the host tier served the OR batch with {host_dispatches} dispatches")
+        for i in range(len(or_q)):
+            kw_same(or_out[i][0], host_out[i][0], f"host tier vs device, OR query {i}")
+            check(host_out[i][1].sum() == or_out[i][1].sum(), f"host tier vs device, OR query {i}: counts")
+        for i in range(n_oracle):
+            kw_check_hits(oracle, or_q[i], *host_out[i], f"host tier, OR query {i}")
+    before = bm25.DISPATCHES.total()
+    heavy = engine.search_batch(corpus.heavy_and, need_matched=False)
+    check(bm25.DISPATCHES.total() > before, "the heavy AND batch did not reach the device program")
+    for i in range(min(8, len(heavy))):
+        kw_check_hits(oracle, corpus.heavy_and[i], *heavy[i], f"heavy AND query {i}")
+    print(
+        f"keyword default route: nucliadb_tpu_native {'loaded' if host_tier._native is not None else 'NOT loaded'}, "
+        f"host WAND tier {'on' if tier is not None else 'off: the default route is the device route'}; OR batch "
+        f"{host_dispatches} dispatches, equal to the device route up to ties; heavy AND batch ({len(heavy)} queries of "
+        f"high-df pairs) on the device program",
+        flush=True,
+    )
+
+    # ---- breakdown ----------------------------------------------------------
+    print(kw_breakdown(torch, para, or_q, and_q, tier, device), flush=True)
+
+    # ---- refresh ------------------------------------------------------------
+    up0, t = engine_mod.UPLOAD_BYTES, time.perf_counter()
+    para2 = ParagraphSearcher(corpus.second, prev=para, device=device)
+    sync()
+    t_refresh, refresh_upload = time.perf_counter() - t, engine_mod.UPLOAD_BYTES - up0
+    check(para2.engine.reused_groups == 3, f"refresh reused {para2.engine.reused_groups} groups")
+    check(refresh_upload < first_upload / 10, f"refresh uploaded {refresh_upload} bytes, first build {first_upload}")
+    del para, docs, engine
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    fresh = ParagraphSearcher(corpus.second, device=device)
+    for s in (para2, fresh):
+        s.engine._host_tier_cached = None
+    got = para2.engine.search_batch(or_q, need_matched=False)
+    want = fresh.engine.search_batch(or_q, need_matched=False)
+    check(kw_bits(got) == kw_bits(want), "refreshed searcher differs from a fresh build")
+    check([c.sum() for _, c in got] == [c.sum() for _, c in want], "refreshed searcher: counts differ")
+    for r in (ParagraphSearchRequest(query=q.text, top_k=KW_TOP_K) for q in or_q[:8] + [single_q]):
+        a, b = para2.search(r), fresh.search(r)
+        check([(h.doc_id, h.score) for h in a.hits] == [(h.doc_id, h.score) for h in b.hits], "refresh: a request differs")
+    new_hits = [h for hits, _ in got for h in hits if h.doc_id >= corpus.n]
+    print(
+        f"keyword refresh: +{cfg['refresh']} paragraphs, reused {para2.engine.reused_groups} groups, "
+        f"{refresh_upload / 2**20:.2f} MiB uploaded ({refresh_upload / first_upload:.4f} of the first build's), "
+        f"{t_refresh:.1f}s; results bit-identical to a fresh build ({len(new_hits)} hits from the new segment)",
+        flush=True,
+    )
+    del para2, fresh
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return dispatches
+
+
+def engine_hit(hit, doc_id=None):
+    """A searcher's hit as (doc_id, score) for the oracle check."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(doc_id=hit.doc_id if doc_id is None else doc_id, score=hit.score)
+
+
+def _no_count():
+    from nucliadb_tpu_torch.index.text_engine.engine import _CountOnly
+
+    return _CountOnly(-1, 0)
+
+
+def kw_breakdown(torch, para, or_q, and_q, tier, device):
+    """Device ms of each stage of the batched program on the OR batch (CUDA
+    events, mean of 5 after a warm-up), the scatter's deterministic and
+    atomic forms, and host ms of planning, fetch + hits and whole batches."""
+    from nucliadb_tpu_torch.index.paragraph import ParagraphSearchRequest
+    from nucliadb_tpu_torch.index.text_engine import engine as engine_mod
+    from nucliadb_tpu_torch.ops import bm25
+    from nucliadb_tpu_torch.utils.platform import device_fetch
+
+    engine = para.engine
+    dev = engine.device
+    n_q = len(or_q)
+    L = engine.n_pad
+    k, caps, rows_np, idfs_np, params_np = engine.plan_batch(or_q)
+    groups, offs, tc = engine._group_tensors(), engine._offsets(), tuple(engine._tier_group_counts())
+    mask = engine.base_mask_device()
+
+    def upload():
+        return [torch.from_numpy(a).to(dev) for a in (rows_np, idfs_np, params_np)]
+
+    rows, idfs, params = upload()
+    avgdl = params[:, 0]
+    parts = bm25.gather_weights(groups, offs, rows, idfs, avgdl, caps, tc, L)
+    scores, _ = bm25.scatter_postings(parts, n_q, L, False, dev)
+    base = torch.arange(n_q, device=dev)[:, None, None] * (L + 1)
+    all_idx = torch.cat([(ids + base).reshape(-1) for ids, _, _ in parts])
+    all_w = torch.cat([w.reshape(-1) for _, w, _ in parts])
+    lanes = int(all_idx.numel())
+
+    def put_deterministic():
+        torch.use_deterministic_algorithms(True)
+        try:
+            torch.zeros(n_q * (L + 1), device=dev).index_put_((all_idx,), all_w, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    timed = cuda_ms if device == "cuda" else host_ms
+    out = {
+        "upload_rows_idfs_params": timed(upload, 5),
+        "gather_and_weights": timed(lambda: bm25.gather_weights(groups, offs, rows, idfs, avgdl, caps, tc, L), 5),
+        "scatter_per_slot_deterministic": timed(lambda: bm25.scatter_postings(parts, n_q, L, False, dev), 5),
+        "scatter_one_atomic_index_add": timed(
+            lambda: torch.zeros(n_q * (L + 1), device=dev).index_add_(0, all_idx, all_w), 5
+        ),
+        "scatter_index_put_deterministic_algorithms": timed(put_deterministic, 3),
+        "topk_cut": timed(lambda: bm25.cut(scores[:, :L], None, mask, params[:, 1], params[:, 2], k), 5),
+        # what masked_topk's select path replaces: a stable sort of the whole axis
+        "topk_full_stable_sort": timed(lambda: torch.sort(scores[:, :L], dim=-1, descending=True, stable=True), 3),
+        "dense_columns": timed(
+            lambda: bm25.add_dense_columns(scores[:, :L], None, groups, offs, rows, idfs, avgdl, caps, tc), 5
+        ),
+        "whole_program_or": timed(
+            lambda: bm25.bm25_groups_batch(groups, offs, mask, rows, idfs, params, k, caps, tc,
+                                           shared_mask=True, count_only=True, with_counts=False), 5
+        ),
+    }
+    ka, caps_a, ra, ia, pa = engine.plan_batch(and_q)
+    ra, ia, pa = (torch.from_numpy(a).to(dev) for a in (ra, ia, pa))
+    out["whole_program_and"] = timed(
+        lambda: bm25.bm25_groups_batch(groups, offs, mask, ra, ia, pa, ka, caps_a, tc,
+                                       shared_mask=True, count_only=True, with_counts=True), 5
+    )
+    res = bm25.bm25_groups_batch(groups, offs, mask, rows, idfs, params, k, caps, tc,
+                                 shared_mask=True, count_only=True, with_counts=False)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["host_fetch"] = host_ms(lambda: device_fetch(*res), 3)
+    out["host_plan_batch"] = host_ms(lambda: engine.plan_batch(or_q), 3)
+    out["host_fetch_and_hits"] = host_ms(lambda: engine._finalize_batch(or_q, k, False, *res), 3)
+    engine._host_tier_cached = None
+    out["host_batch_device_route_or"] = host_ms(lambda: engine.search_batch(or_q, need_matched=False), 3)
+    out["host_batch_device_route_and"] = host_ms(lambda: engine.search_batch(and_q, need_matched=False), 3)
+    req = ParagraphSearchRequest(query=or_q[0].text, top_k=KW_TOP_K)
+    out["host_search_request_device_route"] = host_ms(lambda: para.search(req), 5)
+    engine._host_tier_cached = tier
+    if tier is not None:
+        out["host_batch_default_route_or"] = host_ms(lambda: engine.search_batch(or_q, need_matched=False), 3)
+        out["host_batch_default_route_and"] = host_ms(lambda: engine.search_batch(and_q, need_matched=False), 3)
+        out["host_search_request_default_route"] = host_ms(lambda: para.search(req), 5)
+    g0 = engine.groups[0]
+    t = time.perf_counter()
+    c = engine_mod._consolidate(g0.segments, (), 0, 0)
+    out["host_consolidate_group0"] = round((time.perf_counter() - t) * 1e3, 3)
+    t = time.perf_counter()
+    engine_mod._build_tier_matrices(c.terms_sorted, c.group_offsets, c.pdocs, c.ptfs, g0.widths, g0.dlen_np)
+    out["host_tier_matrices_group0"] = round((time.perf_counter() - t) * 1e3, 3)
+    del c
+    out["lanes"] = lanes
+    out["caps"] = list(caps)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        bm25.bm25_groups_batch(groups, offs, mask, rows, idfs, params, k, caps, tc,
+                               shared_mask=True, count_only=True, with_counts=False)
+        torch.cuda.synchronize()
+        out["peak_gib_or_batch"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    out = {key: (round(v, 3) if isinstance(v, float) else v) for key, v in out.items()}
+    return f"breakdown keyword (ms, batch {n_q}, {engine.n_docs} paragraphs): {json.dumps(out)}"
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host ms of ``reps`` calls after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
 def main() -> None:
     import torch
 
@@ -680,6 +1232,8 @@ def main() -> None:
         phase_binary_breakdown(torch, searcher, corpus.q_np)
         del searcher
         corpus.free(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_keyword(torch, tmp, KW_FULL)
     print(
         "note: int8_scan_slots_resident has no serving route in either package; its kernel is the "
         "top-1 mode of int8_slot_scan.cu, so its launches are that mode's on the int8 + pallas path",

@@ -1,1 +1,1 @@
-"""Index implementations of the port (vector only, so far)."""
+"""Index implementations of the port: vector, text engine, paragraph and text."""

@@ -1,4 +1,4 @@
-"""Device compute for the vector index, in PyTorch.
+"""Device compute for the vector and text indexes, in PyTorch.
 
 Counterparts of ``nucliadb_tpu/ops``:
 
@@ -10,5 +10,7 @@ Counterparts of ``nucliadb_tpu/ops``:
 - ``slot_scan`` — the top-1 and top-2-per-slot int8 scans: one CUDA kernel
   (``csrc/int8_slot_scan.cu``, two modes) beside its plain PyTorch versions;
 - ``binary_scan`` — the top-1-per-slot popcount scan of binary codes: a
-  CUDA kernel (``csrc/binary_slot_scan.cu``) beside its plain version.
+  CUDA kernel (``csrc/binary_slot_scan.cu``) beside its plain version;
+- ``bm25``      — the keyword leg's BM25 group program (tier gather,
+  scatter, dense columns, cut) as torch ops.
 """

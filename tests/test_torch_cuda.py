@@ -171,3 +171,96 @@ def test_cuda_pallas_index_matches_cpu_index(tmp_path, quantization):
                 top = {gpu.index.keys[i] for i in gi[0]}
                 n_dup = len(top & {"r0/f/0", "dup/f/0", "dup/f/1", "dup/f/2"})
                 assert n_dup == (1 if dedup else 4)
+
+
+# ---------------------------------------------------------------------------
+# the keyword leg: torch ops (ops/bm25.py, ops/topk.py), no hand kernel
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_masked_topk_long_axis_matches_cpu():
+    """The select path of ``masked_topk`` (k * 16 <= N) on the card equals
+    the CPU's: scores descending, the lower index first among ties."""
+    _need_card()
+    from nucliadb_tpu_torch.ops.topk import masked_topk
+
+    rng = np.random.default_rng(18)
+    s = (rng.integers(0, 6, (64, 1 << 20)) * 0.25).astype(np.float32)
+    s[:, rng.choice(1 << 20, 500, replace=False)] = 9.0  # a tie run straddling k
+    floor = np.full((64, 1), -1.0, np.float32)
+    floor[3] = 10.0
+    mask = rng.random(1 << 20) > 0.05
+    for k in (1, 20, 300):
+        args = [torch.from_numpy(a) for a in (s, mask, floor)]
+        cs, ci = masked_topk(args[0], k, mask=args[1], min_score=args[2])
+        gs, gi = masked_topk(args[0].cuda(), k, mask=args[1].cuda(), min_score=args[2].cuda())
+        assert torch.equal(gs.cpu(), cs) and torch.equal(gi.cpu(), ci)
+        assert (ci[3] == -1).all() and (cs[0, : min(k, 475)] == 9.0).all()
+
+
+def _keyword_segments(tmp_path, n=3000):
+    from nucliadb_tpu_torch.index.text_engine.builder import DocEntry, build_segment
+    from nucliadb_tpu_torch.index.vector import Seq
+
+    rng = np.random.default_rng(17)
+    vocab = [f"v{i:03d}x" for i in range(300)]
+    ids = np.minimum(rng.zipf(1.3, size=(n, 12)) - 1, len(vocab) - 1)
+    docs = [
+        DocEntry(key=f"r{i:04d}/f", text=" ".join(vocab[j] for j in row), facets=["/l/tenth"] if i % 10 == 0 else [])
+        for i, row in enumerate(ids)
+    ]
+    cuts = [0, 1300, 2600, n]
+    segs = [
+        (build_segment(str(tmp_path / f"s{j}"), docs[cuts[j] : cuts[j + 1]], kind="paragraph"), Seq(j + 1))
+        for j in range(3)
+    ]
+    return segs, vocab
+
+
+@pytest.mark.parametrize("need_matched", [True, False])
+def test_cuda_keyword_engine_matches_cpu(tmp_path, monkeypatch, need_matched):
+    """The device route of the text engine on the card against the same
+    engine on the CPU: ids equal up to ties, scores within 1e-6, the same
+    matched bitmaps and counts, and identical bits from two runs."""
+    _need_card()
+    from unittest import mock
+
+    from nucliadb_tpu_torch.index.text_engine import engine as teng
+    from nucliadb_tpu_torch.index.text_engine.builder import open_text_segment
+    from nucliadb_tpu_torch.index.vector import LabelAtom, Seq
+    from nucliadb_tpu_torch.ops import bm25
+
+    monkeypatch.setenv("NDBTPU_TEXT_HOST_TIER", "0")
+    metas, vocab = _keyword_segments(tmp_path)
+    segs = [(open_text_segment(m.path), q) for m, q in metas]
+    with mock.patch.object(teng, "GROUP_MIN_DOCS", 1000), mock.patch.object(teng, "TIER_WIDTHS", (8, 32, 128)):
+        gpu = teng.DeviceTextEngine(segs, [("r0042/", Seq(9))], device="cuda")
+        cpu = teng.DeviceTextEngine(segs, [("r0042/", Seq(9))], device="cpu")
+    assert len(gpu.groups) == 3 and gpu.groups[0].dense_dev is not None
+    rng = np.random.default_rng(19)
+    queries = [
+        teng.TextQuery(text=f"{vocab[int(rng.integers(0, 60))]} {vocab[int(rng.integers(0, 60))]} v00{i % 10}y",
+                       top_k=20, fuzzy=True, all_terms=i % 3 == 0)
+        for i in range(48)
+    ]
+    queries[5].filter = LabelAtom("/l/tenth")
+    queries[6].min_score = 2.0
+    queries[7].excluded = [vocab[2]]
+    before = bm25.DISPATCHES["batch"]
+    runs = [gpu.search_batch(queries, need_matched=need_matched) for _ in range(2)]
+    assert bm25.DISPATCHES["batch"] == before + 2
+    want = cpu.search_batch(queries, need_matched=need_matched)
+    for (h1, m1), (h2, m2), (hc, mc) in zip(*runs, want):
+        assert [(h.doc_id, h.score, h.term_count) for h in h1] == [(h.doc_id, h.score, h.term_count) for h in h2]
+        assert len(h1) == len(hc)
+        if hc:
+            np.testing.assert_allclose([h.score for h in h1], [h.score for h in hc], rtol=1e-6)
+            assert_same_results([[h.score for h in hc]], [[h.doc_id for h in hc]],
+                                [[h.score for h in h1]], [[h.doc_id for h in h1]])
+        if need_matched:
+            np.testing.assert_array_equal(m1, mc)
+            np.testing.assert_array_equal(m1, m2)
+        else:
+            assert m1.sum() == m2.sum() == mc.sum()
+    single = gpu.search(queries[5])
+    assert [h.doc_id for h in single[0]] == [h.doc_id for h in cpu.search(queries[5])[0]]

@@ -51,6 +51,32 @@ _SCRIPT = textwrap.dedent(
         hits = searcher.search(VectorSearchRequest(vectors=v[[7, 900]], top_k=3))
     assert isinstance(searcher.index.codes, quant.BinaryCodes) and calls == [1], calls
     assert [h[0].key for h in hits] == ["r/0007", "r/0900"], hits
+
+    # the keyword leg: segments from the port's builder, both searchers,
+    # a device-route batch (the host tier off) and the default route
+    import os
+    from nucliadb_tpu_torch.index.paragraph import ParagraphSearcher, ParagraphSearchRequest
+    from nucliadb_tpu_torch.index.text import DocumentSearchRequest, TextSearcher
+    from nucliadb_tpu_torch.index.text_engine import TextQuery
+    from nucliadb_tpu_torch.index.text_engine.builder import DocEntry, build_segment
+    from nucliadb_tpu_torch.ops import bm25
+
+    words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot"]
+    docs = [DocEntry(key=f"r{i:03d}/t/t/0-9", text=" ".join(rng.choice(words, 6)),
+                     facets=["/l/odd"] if i % 2 else [], columns={"created": i}) for i in range(200)]
+    with tempfile.TemporaryDirectory() as d:
+        idx = SimpleOpenIndex(segment_list=[(build_segment(d + "/p", docs, kind="paragraph"), Seq(1))])
+        para = ParagraphSearcher(idx, device="cpu")
+        default = para.search(ParagraphSearchRequest(query="alpha bravo", top_k=5))
+        os.environ["NDBTPU_TEXT_HOST_TIER"] = "0"
+        text = TextSearcher(SimpleOpenIndex(segment_list=[(build_segment(d + "/t", docs, kind="text"), Seq(1))]), device="cpu")
+        para.engine._host_tier_cached = None
+        out = para.engine.search_batch([TextQuery(text=t, top_k=5) for t in ("alpha", "bravo echo", "delta")])
+        assert bm25.DISPATCHES["batch"] == 1 and all(len(h) == 5 for h, _ in out), out
+        resp = para.search(ParagraphSearchRequest(query="alpha bravo", top_k=5))
+        docs_resp = text.search(DocumentSearchRequest(query="charlie", top_k=3, order_by="created"))
+    assert len(resp.hits) == len(default.hits) == 5, (resp, default)
+    assert len(docs_resp.hits) == 3 and bm25.DISPATCHES["single"] >= 1, bm25.DISPATCHES
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not loaded, loaded
     print("OK")
@@ -81,6 +107,12 @@ def test_cuda_request_without_a_card_raises(tmp_path):
     meta = create_segment(str(tmp_path / "s"), [Elem(key="r/0", vectors=v)], cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         VectorSearcher(cfg, SimpleOpenIndex(segment_list=[(meta, Seq(1))]), device="cuda")
+    from nucliadb_tpu_torch.index.paragraph import ParagraphSearcher
+    from nucliadb_tpu_torch.index.text_engine.builder import DocEntry, build_segment
+
+    para = build_segment(str(tmp_path / "p"), [DocEntry(key="r/0", text="alpha")], kind="paragraph")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ParagraphSearcher(SimpleOpenIndex(segment_list=[(para, Seq(1))]), device="cuda")
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     with pytest.raises(ValueError):

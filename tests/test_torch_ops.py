@@ -61,6 +61,42 @@ def test_masked_topk_matches_jax(case):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
+def _long_axis_ties(rng, b, n, k):
+    """BM25-like rows: few distinct scores, a planted run of 3k equal
+    scores straddling the k-th place, a few scores above it, a masked
+    stretch inside the run, and rows where fewer than k entries survive
+    the per-row floor."""
+    s = rng.integers(0, 4, (b, n)).astype(np.float32) * np.float32(0.125)
+    for row in range(b):
+        run = rng.choice(n, 3 * k, replace=False)
+        s[row, run] = 2.0
+        s[row, rng.choice(n, k // 2, replace=False)] = 3.0
+    mask = np.ones(n, bool)
+    mask[n // 3 : n // 3 + 40] = False
+    floor = np.full((b, 1), -1.0, np.float32)
+    floor[1] = 2.5  # only the k // 2 entries at 3.0 pass: -1 padding
+    floor[2] = 9.0  # nothing passes
+    return s, mask, floor
+
+
+@pytest.mark.parametrize("k", [1, 20, 64])
+def test_masked_topk_long_axis_ties_match_jax(k):
+    """The select path (k * 16 <= N) keeps lax.top_k's order: scores
+    descending, the lower index first among equal scores."""
+    rng = np.random.default_rng(3)
+    s, mask, floor = _long_axis_ties(rng, 6, 4096, k)
+    js, ji = jtopk.masked_topk(jnp.asarray(s), k, mask=jnp.asarray(mask), min_score=jnp.asarray(floor))
+    ts, ti = ttopk.masked_topk(_t(s), k, mask=_t(mask), min_score=_t(floor))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (ti.numpy()[2] == -1).all() and (ti.numpy()[1] >= 0).sum() == k // 2
+    # one row, no floor: the 1-D form
+    js, ji = jtopk.masked_topk(jnp.asarray(s[0]), k)
+    ts, ti = ttopk.masked_topk(_t(s[0]), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
 def test_duplicate_id_mask_matches_jax():
     rng = np.random.default_rng(2)
     ids = rng.integers(-1, 6, (7, 12)).astype(np.int32)
