@@ -10,20 +10,25 @@ its keyword leg once at full size, in phases that each print one line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together, and prints the int8 kernel's
+   ``-Xptxas -v`` report (registers and spills of each instantiation);
 3. kernels vs plain versions, bit for bit (scores as int32 bits, and ids),
    on the card:
-   - the top-2 int8 slot scan over B in {8, 192, 2048}, N in {4096, 6144,
-     1048576}, D in {128, 768}, S in {128, 256};
+   - the top-2 int8 slot scan (``wgmma`` on the int8 tensor cores) over B
+     in {8, 192, 2048}, N in {4096, 6144, 1048576}, D in {128, 768}, S in
+     {128, 256};
    - its top-1 mode through ``int8_scan_slots`` and
      ``int8_scan_slots_resident`` over S in {256, 512, 1024}, B in {8, 192,
      2048} (1024 for the resident wrapper), N in {16384, 24576, 1048576},
      D in {128, 768};
+   - both modes at the tiling's edge shapes: B in {1, 65, 2047}, D in {64,
+     3072, 8192}, N = 65536, S = 32 (top-2) and 1024 (top-1);
    - the binary popcount slot scan over B in {8, 64}, N in {16384,
      1048576}, D in {128, 768}, S = 1024;
    all with an all-masked column range and planted ties (and, for int8,
    pair collisions); then each kernel and its plain version timed once
-   with CUDA events after a warm-up;
+   with CUDA events after a warm-up, and ``torch._int_mm`` at the timed
+   shape as a yardstick for the int8 product alone;
 4. slices: a clustered 1,000,000 x 768 corpus made from a seed (1024
    centres, noise 0.35, rows L2-normalised, a label on every tenth
    paragraph) written once as 4 segments plus a deletion, and opened
@@ -71,14 +76,16 @@ its keyword leg once at full size, in phases that each print one line:
    - a refresh adding 2,000 paragraphs: 3 groups reused, under a tenth of
      the first build's upload, answers bit-identical to a fresh build.
 
-It then prints the kernels' JSON line and, last, ``{"ok": true, "device":
-{...}}``. Any failed check exits non-zero and prints no result. It imports
-nothing of JAX.
+It then prints the kernels' JSON line (each kernel's launches on its path,
+times, bound from this run's shapes and its share of it) and, last,
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
+prints no result. It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import tempfile
 import time
@@ -116,10 +123,24 @@ TOP1_TIMED = {  # (B, N, D, S) per wrapper
     "int8_scan_slots": (2048, 1048576, 768, 1024),
     "int8_scan_slots_resident": (1024, 1048576, 768, 512),
 }
+# edge shapes of the tensor-core tiling: ragged query tiles, the narrow slot
+# group (S=32, W=32) and the widest slot table, D from one 64-byte chunk to
+# the streamed query tile
+EDGE_SHAPES = {
+    keep: [(b, 65536, d, s) for d in (64, 3072, 8192) for b in (1, 65, 2047)]
+    for keep, s in ((2, 32), (1, 1024))
+}
 BINARY_SHAPES = [(b, n, d, 1024) for d in (128, 768) for n in (16384, 1048576) for b in (8, 64)]
 BINARY_TIMED = (64, 1048576, 768, 1024)
 BINARY_BATCH = 64  # the largest bucketed batch the binary kernel's gate takes
 SOURCES = ("int8_slot_scan", "binary_slot_scan")
+# NVIDIA H100 SXM data sheet, dense: int8 tensor cores and HBM3
+INT8_TOPS = 1979e12
+HBM_BYTES_PER_S = 3.35e12
+# __popc on the CUDA cores: 16 per clock per SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0) x 132
+# SMs x 1.98 GHz boost
+POPC_PER_S = 132 * 16 * 1.98e9
 
 
 def check(cond: bool, what: str) -> None:
@@ -237,6 +258,90 @@ def phase_top1_kernels(torch, slot_scan):
             del q, codes, scale, mask
     torch.cuda.empty_cache()
     return {name: tuple(v) for name, v in out.items()}
+
+
+def phase_edge_kernels(torch, slot_scan):
+    """Both int8 modes at ``EDGE_SHAPES`` against the plain version, bit for
+    bit (the top-1 mode through ``int8_scan_slots``); returns {keep: max_err}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    wrappers = {2: slot_scan.int8_scan_slots_resident2, 1: slot_scan.int8_scan_slots}
+    plain = {2: slot_scan.int8_scan_slots_resident2_reference, 1: slot_scan.int8_scan_slots_top1_reference}
+    out = {}
+    for keep, shapes in EDGE_SHAPES.items():
+        out[keep] = 0.0
+        for d in sorted({shape[2] for shape in shapes}):
+            s = shapes[0][3]
+            q, codes, scale, mask = kernel_inputs(gen, d, s, 65536, 2047, "cuda")
+            for b, n, dd, ss in shapes:
+                if dd != d:
+                    continue
+                args = (q[:b].contiguous(), codes[:n], scale[:n], mask[:n])
+                got = wrappers[keep](*args, slots=s)
+                want = plain[keep](*args, slots=s)
+                torch.cuda.synchronize()
+                same, err = same_table(torch, got, want)
+                check(same, f"top-{keep} kernel != plain at edge shape B={b} N={n} D={d} S={s}")
+                out[keep] = max(out[keep], err)
+            del q, codes, scale, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_bound_ms(b: int, n: int, d: int, s: int, keep: int) -> tuple[float, str]:
+    """The least time for a slot scan on an H100: 2*B*N*D int8 operations
+    at the dense tensor-core peak, or its bytes (queries, codes, scales and
+    mask read once, the [B, keep*S] scores and ids written once) at the HBM
+    rate, whichever is larger."""
+    ops_ms = 2 * b * n * d / INT8_TOPS * 1e3
+    bytes_ms = (b * d + n * d + 5 * n + 8 * b * keep * s) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def binary_bound_ms(b: int, n: int, d: int, s: int) -> tuple[float, str]:
+    """The popcount slot scan: B*N*(D/32)*4 AND+popcounts at the CUDA
+    cores' __popc rate, or its bytes at the HBM rate."""
+    w = d // 32
+    ops_ms = b * n * w * 4 / POPC_PER_S * 1e3
+    bytes_ms = (4 * b * 4 * w + 4 * 4 * b + 4 * w * n + 13 * n + 8 * b * s) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def product_library_ms(torch) -> float:
+    """``torch._int_mm(q, codes.t())`` at ``TIMED_SHAPE``: the int8 product
+    alone (an 8 GiB int32 matrix, no slot table). A yardstick for the
+    product, not the same function; the port never calls it."""
+    b, n, d, _ = TIMED_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    q = torch.randint(-127, 128, (b, d), generator=gen, device="cuda", dtype=torch.int8)
+    codes = torch.randint(-127, 128, (n, d), generator=gen, device="cuda", dtype=torch.int8)
+    ms = cuda_ms(lambda: torch._int_mm(q, codes.t()), 3)
+    del q, codes
+    torch.cuda.empty_cache()
+    return ms
+
+
+def ptxas_report(kernels, name: str) -> list[str]:
+    """One line per kernel of ``csrc/<name>.cu``: its template arguments,
+    registers and spills, from the build's ``-Xptxas -v`` report."""
+    labels = (
+        (r"slot_scan_wgmmaILi(\d)ELi(\d+)ELb(\d)", "slot_scan_wgmma<KEEP={}, W={}, RESIDENT={}>"),
+        (r"slot_table_mergeILi(\d)", "slot_table_merge<KEEP={}>"),
+    )
+    lines, label, spill = [], None, ""
+    for line in kernels.library_path(name).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            label = next(
+                (fmt.format(*m.groups()) for pat, fmt in labels if (m := re.search(pat, entry))), entry[:60]
+            )
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and label:
+            lines.append(f"{label}: {line.split(':', 1)[1].strip()}; {spill}")
+            label = None
+    return lines
 
 
 def binary_inputs(torch, quant, gen, d, n_max, b_max):
@@ -1197,6 +1302,8 @@ def main() -> None:
     for src in SOURCES:
         kernels.load(src)
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t:.1f}s", flush=True)
+    for line in ptxas_report(kernels, "int8_slot_scan"):
+        print(f"ptxas int8_slot_scan.cu: {line}", flush=True)
 
     max_err, kernel_ms, plain_ms = phase_kernels(torch, slot_scan)
     print(
@@ -1211,6 +1318,14 @@ def main() -> None:
             f"at B,N,D,S={TOP1_TIMED[wrapper]} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms",
             flush=True,
         )
+    edge_err = phase_edge_kernels(torch, slot_scan)
+    print(
+        f"edge shapes: bit-identical at {sum(len(v) for v in EDGE_SHAPES.values())} shapes "
+        f"(B in 1, 65, 2047; D in 64, 3072, 8192; N=65536; top-2 at S=32, top-1 at S=1024)",
+        flush=True,
+    )
+    product_ms = product_library_ms(torch)
+    print(f"torch._int_mm at B,N,D={TIMED_SHAPE[:3]} (the product alone, int32 out): {product_ms:.3f} ms", flush=True)
     bin_err, bin_ms, bin_plain_ms = phase_binary_kernel(torch, quant, binary_scan)
     print(
         f"binary kernel vs plain: bit-identical at {len(BINARY_SHAPES)} shapes; at B,N,D,S={BINARY_TIMED} "
@@ -1241,21 +1356,30 @@ def main() -> None:
     )
 
     int8_src = "nucliadb_tpu_torch/csrc/int8_slot_scan.cu"
-    entries = [
+    top1_err, top1_ms, top1_plain = top1["int8_scan_slots"]
+    res_err, res_ms, res_plain = top1["int8_scan_slots_resident"]
+    entries = [  # name, source, replaces, launches, max_abs_err, ms, plain_ms, (bound_ms, bound_by)
         ("int8_scan_slots_resident2", int8_src, "nucliadb_tpu/ops/pallas_scan.py:350",
-         top2_launches, max_err, kernel_ms, plain_ms),
+         top2_launches, max(max_err, edge_err[2]), kernel_ms, plain_ms, int8_bound_ms(*TIMED_SHAPE, 2)),
         ("int8_scan_slots", int8_src, "nucliadb_tpu/ops/pallas_scan.py:47",
-         top1_launches, *top1["int8_scan_slots"]),
+         top1_launches, max(top1_err, edge_err[1]), top1_ms, top1_plain,
+         int8_bound_ms(*TOP1_TIMED["int8_scan_slots"], 1)),
         ("int8_scan_slots_resident", int8_src, "nucliadb_tpu/ops/pallas_scan.py:213",
-         top1_launches, *top1["int8_scan_slots_resident"]),
+         top1_launches, res_err, res_ms, res_plain, int8_bound_ms(*TOP1_TIMED["int8_scan_slots_resident"], 1)),
         ("binary_scan_slots", "nucliadb_tpu_torch/csrc/binary_slot_scan.cu",
-         "nucliadb_tpu/ops/pallas_scan.py:523", binary_launches, bin_err, bin_ms, bin_plain_ms),
+         "nucliadb_tpu/ops/pallas_scan.py:523", binary_launches, bin_err, bin_ms, bin_plain_ms,
+         binary_bound_ms(*BINARY_TIMED)),
     ]
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": n,
-         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
-        for k, src, rep, n, err, k_ms, p_ms in entries
-    ]}), flush=True)
+    rows = []
+    for k, src, rep, n, err, k_ms, p_ms, (bound_ms, bound_by) in entries:
+        row = {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": n,
+               "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               # no single PyTorch call computes a slot table
+               "library_ms": None, "share": bound_ms / k_ms}
+        if src == int8_src:
+            row["product_library_ms"] = product_ms  # torch._int_mm at TIMED_SHAPE: the product alone
+        rows.append(row)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
 
 

@@ -17,12 +17,21 @@ its counterparts module by module, under the same names:
   keyword leg: text segment files, ``DeviceTextEngine`` with its host WAND
   tier and coalescer, ``ParagraphSearcher`` and ``TextSearcher``.
 
-It imports ``torch`` and never ``jax``. The jax-free host modules of the
-reference (``nucliadb_tpu.types``, ``query_language``, ``utils.keys``,
-``utils.buckets``, ``models.internal``) are imported as they are;
-everything under ``nucliadb_tpu.index.vector`` and
-``nucliadb_tpu.index.text_engine`` imports jax, so their counterparts here
-are copies that read and write the same segment files.
+It imports ``torch``, never ``jax`` and nothing of the JAX package, not
+even its jax-free modules. The host modules it needs are copies kept
+verbatim: ``types.py``, ``query_language.py``, ``utils/keys.py``,
+``utils/buckets.py`` and ``models/internal.py``, beside the copies of the
+vector and text segment modules, which read and write the same segment
+files. Being copies, their classes and enums are not the JAX package's: a
+``LabelAtom`` or ``PrefilterResult`` of one package is not one of the
+other (``evaluate_bitset`` dispatches on ``isinstance``; ``IndexKind``,
+``PrefilterKind`` and ``ResourceStatus`` compare by identity), so callers
+build the port's inputs from the port's types.
+
+The C++ host library ``nucliadb_tpu_native`` (built from ``native/*.cpp``)
+is a top-level extension module, not part of the JAX package, and both
+packages share it: the port's tokenizer, builder, phrase matcher and host
+WAND tier call it.
 """
 
 __version__ = "0.1.0"

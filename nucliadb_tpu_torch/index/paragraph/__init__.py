@@ -20,9 +20,9 @@ import torch
 from dataclasses import dataclass, field as dc_field
 from typing import Optional
 
-from nucliadb_tpu.models.internal import ResourceDoc
-from nucliadb_tpu.query_language import BooleanExpression, evaluate_bitset
-from nucliadb_tpu.types import (
+from ...models.internal import ResourceDoc
+from ...query_language import BooleanExpression, evaluate_bitset
+from ...types import (
     FieldId,
     OpenIndexMetadata,
     PrefilterResult,

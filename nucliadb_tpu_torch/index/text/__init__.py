@@ -19,9 +19,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from nucliadb_tpu.models.internal import ResourceDoc, ResourceStatus
-from nucliadb_tpu.query_language import BooleanExpression, evaluate_bitset
-from nucliadb_tpu.types import (
+from ...models.internal import ResourceDoc, ResourceStatus
+from ...query_language import BooleanExpression, evaluate_bitset
+from ...types import (
     FieldId,
     OpenIndexMetadata,
     PrefilterResult,

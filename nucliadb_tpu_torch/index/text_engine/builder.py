@@ -37,7 +37,7 @@ from typing import Sequence
 import msgpack
 import numpy as np
 
-from nucliadb_tpu.types import SegmentMetadata, Seq
+from ...types import SegmentMetadata, Seq
 from .tokenizer import tokenize_with_positions
 
 # v2: docs carry /f/{field_type} facets (field-type filters + catalog title
@@ -103,7 +103,7 @@ class TextSegmentData:
         return zlib.decompress(self.stored_blob(doc_id)).decode("utf-8")
 
     def key_prefix_mask(self, prefixes: Sequence[str]) -> np.ndarray:
-        from nucliadb_tpu.utils.keys import key_prefix_ranges
+        from ...utils.keys import key_prefix_ranges
 
         mask = np.zeros(self.n_docs, dtype=bool)
         for lo, hi in key_prefix_ranges(self.keys, prefixes):

@@ -41,7 +41,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from nucliadb_tpu.query_language import (
+from ...query_language import (
     BooleanExpression,
     DateRangeAtom,
     FacetPrefixAtom,
@@ -51,8 +51,8 @@ from nucliadb_tpu.query_language import (
     LabelAtom,
     evaluate_bitset,
 )
-from nucliadb_tpu.types import Seq
-from nucliadb_tpu.utils.buckets import bucket as _bucket  # shared {2^k, 1.5*2^k} ladder
+from ...types import Seq
+from ...utils.buckets import bucket as _bucket  # shared {2^k, 1.5*2^k} ladder
 
 from ...ops import bm25
 from ...ops.bm25 import B, K1
@@ -743,7 +743,7 @@ class DeviceTextEngine:
         return seg.stored_text(gid - offset)
 
     def key_prefix_postings(self, prefixes: Sequence[str]) -> np.ndarray:
-        from nucliadb_tpu.utils.keys import key_prefix_ranges
+        from ...utils.keys import key_prefix_ranges
 
         out = [
             np.arange(lo, hi, dtype=np.int32)

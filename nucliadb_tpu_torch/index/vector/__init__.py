@@ -16,14 +16,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nucliadb_tpu.query_language import (
+from ...query_language import (
     BooleanExpression,
     FacetPrefixAtom,
     KeyPrefixAtom,
     LabelAtom,
     evaluate_bitset,
 )
-from nucliadb_tpu.types import OpenIndexMetadata, PrefilterResult, Seq, SimpleOpenIndex
+from ...types import OpenIndexMetadata, PrefilterResult, Seq, SimpleOpenIndex
 
 from .config import Quantization, Similarity, VectorCardinality, VectorConfig
 from .device import DeviceVectorIndex, VectorHit

@@ -44,8 +44,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from nucliadb_tpu.types import Seq
-from nucliadb_tpu.utils.buckets import bucket
+from ...types import Seq
+from ...utils.buckets import bucket
 
 from ...ops import binary_scan, quant, slot_scan
 from ...ops.distance import prepare_query, rerank_scores, scores_matmul

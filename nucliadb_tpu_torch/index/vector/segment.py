@@ -27,8 +27,8 @@ from typing import Iterable, Sequence
 import msgpack
 import numpy as np
 
-from nucliadb_tpu.types import SegmentMetadata, Seq
-from nucliadb_tpu.utils.keys import key_prefix_ranges  # noqa: F401  (re-exported)
+from ...types import SegmentMetadata, Seq
+from ...utils.keys import key_prefix_ranges  # noqa: F401  (re-exported)
 
 from .config import VectorConfig
 

@@ -41,6 +41,8 @@ _KERNEL_BLOCK_B = 16  # queries per CUDA block (BQ in the source)
 _BLOCKS_PER_SM = 3  # resident blocks per SM under __launch_bounds__(256, 3)
 _KERNEL_MAX_WORDS = 256  # D <= 8192: the planes of 16 queries in shared memory
 _KERNEL_MAX_SLOTS = 1024  # a block holds up to 256 slots, a grid 4 groups
+_KERNEL_THREADS = 256  # threads per CUDA block at most, one slot each
+_WAVES = 4  # waves of resident blocks the column ranges are cut into
 _PLANES = quant.QUERY_BITS
 
 
@@ -87,6 +89,35 @@ def binary_scan_slots_reference(
     return table
 
 
+def kernel_tiling(b: int, n: int, slots: int, sm_count: int) -> tuple[int, int]:
+    """(columns per range, number of ranges) for the popcount kernel's grid
+    (query tiles of ``_KERNEL_BLOCK_B``, column ranges, slot groups of up to
+    256 slots): about ``_WAVES`` waves of ``_BLOCKS_PER_SM`` resident blocks
+    on a card of ``sm_count`` SMs. A range is a whole number of slot rows."""
+    groups = slots // min(slots, _KERNEL_THREADS)
+    tiles = -(-b // _KERNEL_BLOCK_B) * groups
+    target = sm_count * _BLOCKS_PER_SM * _WAVES
+    want = max(1, -(-target // tiles))
+    rows = n // slots
+    rows_per_range = max(1, -(-rows // want))
+    n_range = rows_per_range * slots
+    return n_range, -(-n // n_range)
+
+
+def _check_slots(slots: int) -> None:
+    """A block holds min(S, 256) slots, so S is a multiple of 32 up to 256,
+    or a multiple of 256 above."""
+    if (
+        slots % 32
+        or not 32 <= slots <= _KERNEL_MAX_SLOTS
+        or (slots > _KERNEL_THREADS and slots % _KERNEL_THREADS)
+    ):
+        raise ValueError(
+            f"slots={slots} must be a multiple of 32 in [32, {_KERNEL_THREADS}] "
+            f"or of {_KERNEL_THREADS} up to {_KERNEL_MAX_SLOTS}"
+        )
+
+
 def _check_kernel_inputs(planes, qparams, codes_t, columns, mask, dim, slots):
     """qparams: (qmin, qstep, qsum, qnorm); columns: (scale, popcnt, resid)."""
     dev = planes.device
@@ -107,7 +138,7 @@ def _check_kernel_inputs(planes, qparams, codes_t, columns, mask, dim, slots):
         raise ValueError(f"codes_t {tuple(codes_t.shape)}, planes {tuple(planes.shape)} and dim={dim} disagree")
     if any(t.shape != (b,) for t in qparams) or any(t.shape != (n,) for t in (*columns, mask)):
         raise ValueError("query scalars must be [B] and column scalars [N]")
-    slot_scan.check_slots(slots, _KERNEL_MAX_SLOTS)
+    _check_slots(slots)
     if n == 0 or n % slots:
         raise ValueError(f"N={n} must be a positive multiple of slots={slots}")
     if w == 0 or w > _KERNEL_MAX_WORDS:
@@ -122,9 +153,7 @@ def _launch_kernel(planes, qparams, codes_t, columns, mask, dim, slots):
     n = codes_t.shape[1]
     dev = planes.device
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_range, n_ranges = slot_scan.kernel_tiling(
-        b, n, slots, sm_count, block_b=_KERNEL_BLOCK_B, blocks_per_sm=_BLOCKS_PER_SM
-    )
+    n_range, n_ranges = kernel_tiling(b, n, slots, sm_count)
     out_s = torch.empty((b, slots), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, slots), dtype=torch.int32, device=dev)
     part_s = torch.empty((n_ranges, b, slots), dtype=torch.float32, device=dev)

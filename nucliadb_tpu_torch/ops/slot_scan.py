@@ -19,9 +19,10 @@ score, so the tables agree. A table depends on the slot map alone, never on
 how N or B is tiled; the Pallas block sizes below only gate the routes.
 
 Every wrapper takes its plain version for tensors on the CPU and launches
-``csrc/int8_slot_scan.cu`` (in its top-1 or top-2 mode) for tensors on a
-CUDA device; there is no fallback between the two. ``LAUNCHES`` counts
-kernel launches by mode, ``"top1"`` and ``"top2"``.
+``csrc/int8_slot_scan.cu`` (in its top-1 or top-2 mode: ``wgmma`` on the
+int8 tensor cores) for tensors on a CUDA device; there is no fallback
+between the two. ``LAUNCHES`` counts kernel launches by mode, ``"top1"``
+and ``"top2"``.
 """
 
 from __future__ import annotations
@@ -54,13 +55,11 @@ RESIDENT2_MAX_B = 2048
 # kernel launches since the last reset, by mode (chip_smoke.py reads them)
 LAUNCHES: Counter = Counter()
 
-_KERNEL_BLOCK_B = 16  # queries per CUDA block (BT in the source)
-_KERNEL_THREADS = 256  # threads per CUDA block at most, one slot each
-_KERNEL_D_ALIGN = 64  # the kernel stages D in 64-byte chunks
-_KERNEL_MAX_D = 8192  # the query tile [16, D] stays in shared memory
-_KERNEL_MAX_SLOTS = {1: 1024, 2: 256}  # by keep; a block holds up to 256 slots
-_BLOCKS_PER_SM = 2  # resident blocks per SM under __launch_bounds__(256, 2)
-_WAVES = 4  # waves of resident blocks the column ranges are cut into
+_KERNEL_TILE_B = 128  # query rows per CTA (TILE_B in the source)
+_KERNEL_D_ALIGN = 64  # TMA rows are 16-byte multiples; the kernel zero-fills D to 128
+_KERNEL_MAX_D = 8192
+_KERNEL_MAX_SLOTS = {1: 1024, 2: 256}  # by keep
+_WAVES = 4  # waves of CTAs (one per SM) the column ranges are cut into at least
 _REFERENCE_CHUNK = 32768  # columns per step of the plain version
 
 
@@ -232,32 +231,32 @@ def int8_scan_slots_top1_reference(
 # --------------------------------------------------------------------------
 
 
-def kernel_tiling(
-    b: int, n: int, slots: int, sm_count: int, *,
-    block_b: int = _KERNEL_BLOCK_B, blocks_per_sm: int = _BLOCKS_PER_SM,
-) -> tuple[int, int]:
-    """(columns per range, number of ranges) for a slot-scan kernel whose
-    grid is (query tiles of ``block_b``, column ranges, slot groups of up to
-    256 slots): about ``_WAVES`` waves of ``blocks_per_sm`` resident blocks
-    on a card of ``sm_count`` SMs. A range is a whole number of slot rows."""
-    groups = slots // min(slots, _KERNEL_THREADS)
-    tiles = -(-b // block_b) * groups
-    target = sm_count * blocks_per_sm * _WAVES
-    want = max(1, -(-target // tiles))
+def kernel_tile_width(slots: int) -> int:
+    """Slots of a CTA's group (W in the source): the product's N, 64 where
+    it divides S, else 32."""
+    return 64 if slots % 64 == 0 else 32
+
+
+def kernel_tiling(b: int, n: int, slots: int, sm_count: int) -> tuple[int, int]:
+    """(columns per range, number of ranges) for the tensor-core kernel's
+    grid (query tiles of 128 rows, column ranges, slot groups of
+    ``kernel_tile_width`` slots), one CTA per SM. A range is a whole number
+    of slot rows. Of the range counts that give at least
+    ``_WAVES`` waves of CTAs (or one range per slot row), it takes the one
+    whose last wave is fullest, the fewest ranges on a tie."""
     rows = n // slots
-    rows_per_range = max(1, -(-rows // want))
-    n_range = rows_per_range * slots
-    return n_range, -(-n // n_range)
-
-
-def check_slots(slots: int, max_slots: int) -> None:
-    """A block holds min(S, 256) slots, so S is a multiple of 32 up to 256,
-    or a multiple of 256 above."""
-    if slots % 32 or not 32 <= slots <= max_slots or (slots > _KERNEL_THREADS and slots % _KERNEL_THREADS):
-        raise ValueError(
-            f"slots={slots} must be a multiple of 32 in [32, {_KERNEL_THREADS}] "
-            f"or of {_KERNEL_THREADS} up to {max_slots}"
-        )
+    tiles = -(-b // _KERNEL_TILE_B) * (slots // kernel_tile_width(slots))
+    lo = min(rows, max(1, -(-sm_count * _WAVES // tiles)))
+    best = None
+    for want in range(lo, min(rows, 2 * lo) + 1):
+        per = -(-rows // want)
+        count = -(-rows // per)
+        ctas = tiles * count
+        fill = ctas / (-(-ctas // sm_count) * sm_count)
+        if best is None or fill > best[0]:
+            best = (fill, per)
+    per = best[1]
+    return per * slots, -(-rows // per)
 
 
 def check_tensors(dev, specs) -> None:
@@ -290,7 +289,9 @@ def _check_kernel_inputs(q_codes, codes, scale, mask, slots, keep=2):
             f"shapes q {tuple(q_codes.shape)} codes {tuple(codes.shape)} "
             f"scale {tuple(scale.shape)} mask {tuple(mask.shape)} disagree"
         )
-    check_slots(slots, _KERNEL_MAX_SLOTS[keep])
+    max_slots = _KERNEL_MAX_SLOTS[keep]
+    if slots % 32 or not 32 <= slots <= max_slots:
+        raise ValueError(f"slots={slots} must be a multiple of 32 in [32, {max_slots}]")
     if n == 0 or n % slots:
         raise ValueError(f"N={n} must be a positive multiple of slots={slots}")
     if d == 0 or d % _KERNEL_D_ALIGN or d > _KERNEL_MAX_D:
@@ -324,7 +325,10 @@ def _launch_kernel(q_codes, codes, scale, mask, slots, keep):
             b, n, d, slots, n_range, keep, stream,
         )
     if err != 0:
-        raise RuntimeError(f"int8_slot_scan (keep={keep}) launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"int8_slot_scan (keep={keep}) launch failed: error {err} "
+            "(a CUDA error, or -2: the driver's tensor-map encoder is missing or refused a map)"
+        )
     LAUNCHES[f"top{keep}"] += 1
     return out_s, out_i
 

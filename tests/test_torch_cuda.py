@@ -39,6 +39,32 @@ def test_kernel_matches_plain_version(case, slots):
     assert torch.equal(ki, ri)
 
 
+@pytest.mark.parametrize("d", [64, 3072, 8192])
+@pytest.mark.parametrize("b", [1, 65, 2047])
+@pytest.mark.parametrize("keep,slots", [(2, 32), (1, 1024)])
+def test_kernel_matches_plain_version_at_edge_shapes(keep, slots, b, d):
+    """The tensor-core tiling's edges: a ragged last query tile (B = 1, 65,
+    2047), the narrow slot group (S = 32) and the widest table (S = 1024),
+    D of one 64-byte chunk and D streamed (3072, 8192), with chip_smoke's
+    planted ties and pair collisions; bit-identical, one counted launch."""
+    _need_card()
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    q, codes, scale, mask = chip_smoke.kernel_inputs(gen, d, slots, 65536, max(b, 8), "cuda")
+    args = (q[:b].contiguous(), codes, scale, mask)
+    wrapper = slot_scan.int8_scan_slots_resident2 if keep == 2 else slot_scan.int8_scan_slots
+    plain = slot_scan.int8_scan_slots_resident2_reference if keep == 2 else slot_scan.int8_scan_slots_top1_reference
+    launches = slot_scan.LAUNCHES[f"top{keep}"]
+    ks, ki = wrapper(*args, slots=slots)
+    assert slot_scan.LAUNCHES[f"top{keep}"] == launches + 1
+    rs, ri = plain(*args, slots=slots)
+    torch.cuda.synchronize()
+    assert torch.equal(ks.view(torch.int32), rs.view(torch.int32))
+    assert torch.equal(ki, ri)
+
+
 def test_cuda_index_matches_cpu_index(tmp_path):
     """The same segments searched through a cuda index (kernel route) and a
     cpu index (plain route): identical candidate tables, so the same ids,
@@ -48,7 +74,7 @@ def test_cuda_index_matches_cpu_index(tmp_path):
     from unittest import mock
 
     import nucliadb_tpu_torch.index.vector.device as tdevice
-    from nucliadb_tpu.types import Seq, SimpleOpenIndex
+    from nucliadb_tpu_torch.types import Seq, SimpleOpenIndex
     from nucliadb_tpu_torch.index.vector import (
         Elem, VectorConfig, VectorSearcher, create_segment,
     )

@@ -1,13 +1,16 @@
-"""The port never imports jax, and never moves a CUDA request to the CPU.
+"""The port never imports jax or the JAX package, and never moves a CUDA
+request to the CPU.
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter.
 """
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,7 +29,7 @@ _SCRIPT = textwrap.dedent(
     )
     import nucliadb_tpu_torch.index.vector.device as device
     from nucliadb_tpu_torch.ops import binary_scan, distance, quant, slot_scan, topk
-    from nucliadb_tpu.types import Seq, SimpleOpenIndex
+    from nucliadb_tpu_torch.types import Seq, SimpleOpenIndex
 
     rng = np.random.default_rng(0)
     v = rng.standard_normal((40, 16)).astype(np.float32)
@@ -79,6 +82,9 @@ _SCRIPT = textwrap.dedent(
     assert len(docs_resp.hits) == 3 and bm25.DISPATCHES["single"] >= 1, bm25.DISPATCHES
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not loaded, loaded
+    # the JAX package neither: nucliadb_tpu_torch* and nucliadb_tpu_native are allowed
+    loaded = sorted(m for m in sys.modules if m == "nucliadb_tpu" or m.startswith("nucliadb_tpu."))
+    assert not loaded, loaded
     print("OK")
     """
 )
@@ -95,8 +101,30 @@ def test_port_imports_no_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+# "import nucliadb_tpu", "from nucliadb_tpu.x import", "import nucliadb_tpu.x as y",
+# but not nucliadb_tpu_torch or nucliadb_tpu_native
+_JAX_PACKAGE_IMPORT = re.compile(r"^\s*(?:import|from)\s+nucliadb_tpu(?:\.|\s|,|$)", re.M)
+
+
+def test_port_sources_name_no_jax_package_import():
+    sources = sorted((Path(REPO) / "nucliadb_tpu_torch").rglob("*.py"))
+    sources.append(Path(REPO) / "chip_smoke.py")
+    assert len(sources) > 20
+    offending = [
+        f"{path.relative_to(REPO)}:{text[:m.start()].count(chr(10)) + 1}"
+        for path in sources
+        for text in [path.read_text()]
+        for m in _JAX_PACKAGE_IMPORT.finditer(text)
+    ]
+    assert not offending, offending
+    assert _JAX_PACKAGE_IMPORT.search("from nucliadb_tpu.types import Seq")
+    assert _JAX_PACKAGE_IMPORT.search("    import nucliadb_tpu")
+    assert not _JAX_PACKAGE_IMPORT.search("from nucliadb_tpu_torch.types import Seq")
+    assert not _JAX_PACKAGE_IMPORT.search("import nucliadb_tpu_native")
+
+
 def test_cuda_request_without_a_card_raises(tmp_path):
-    from nucliadb_tpu.types import Seq, SimpleOpenIndex
+    from nucliadb_tpu_torch.types import Seq, SimpleOpenIndex
     from nucliadb_tpu_torch.index.vector import Elem, VectorConfig, VectorSearcher, create_segment
     from nucliadb_tpu_torch.utils.platform import resolve_device
 

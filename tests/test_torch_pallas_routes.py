@@ -36,7 +36,7 @@ from nucliadb_tpu.query_language import LabelAtom
 from nucliadb_tpu.types import Seq, SimpleOpenIndex
 from nucliadb_tpu_torch.index import vector as tvector
 from nucliadb_tpu_torch.ops import binary_scan, slot_scan
-from torch_test_helpers import RTOL, assert_same_results
+from torch_test_helpers import RTOL, as_port, assert_same_results
 
 DIM = 128
 ROUTES = ("_search_int8", "_search_int8_pallas", "_search_binary", "_search_binary_pallas")
@@ -99,7 +99,7 @@ def searchers(tmp_path_factory):
             open_index, dup = _open_index(tmp_path_factory.mktemp(f"{quantization}{similarity}"), cfg, rng)
             js = jvector.VectorSearcher(cfg, open_index)
             ts = tvector.VectorSearcher(
-                tvector.VectorConfig.from_dict(cfg.to_dict()), open_index, device="cpu"
+                tvector.VectorConfig.from_dict(cfg.to_dict()), as_port(open_index), device="cpu"
             )
             q = rng.standard_normal((100, DIM)).astype(np.float32)
             q[0] = dup + 0.01 * q[0]
@@ -150,7 +150,7 @@ def test_route_matches_jax(searchers, quantization, similarity, request_name, de
     if similarity == "cosine" and "min_score" in kw:
         kw["min_score"] = 0.05
     jreq = jvector.VectorSearchRequest(vectors=q, **kw)
-    treq = tvector.VectorSearchRequest(vectors=q, **kw)
+    treq = tvector.VectorSearchRequest(vectors=q, **as_port(kw))
     jmask, tmask = js._build_mask(jreq), ts._build_mask(treq)
     if jmask is None:
         assert tmask is None
@@ -236,11 +236,11 @@ def test_binary_incremental_refresh_equals_full_build(tmp_path):
             tvector.Elem(key=f"r{s}/f/{i}", vectors=rng.standard_normal((1, DIM)).astype(np.float32))
             for i in range(n)
         ]
-        metas.append((tvector.create_segment(str(tmp_path / f"s{s}"), elems, cfg), Seq(s + 1)))
+        metas.append((tvector.create_segment(str(tmp_path / f"s{s}"), elems, cfg), tvector.Seq(s + 1)))
     q = rng.standard_normal((3, DIM)).astype(np.float32)
-    a = tvector.VectorSearcher(cfg, SimpleOpenIndex(segment_list=metas[:2]), device="cpu")
+    a = tvector.VectorSearcher(cfg, tvector.SimpleOpenIndex(segment_list=metas[:2]), device="cpu")
     before = a.index.search(q, 10)
-    grown = SimpleOpenIndex(segment_list=metas, deletion_list=[("r1/", Seq(4))])
+    grown = tvector.SimpleOpenIndex(segment_list=metas, deletion_list=[("r1/", tvector.Seq(4))])
     b = tvector.VectorSearcher(cfg, grown, prev=a, device="cpu")
     full = tvector.VectorSearcher(cfg, grown, device="cpu")
     assert b.index.vectors is a.index.vectors and b.index.codes is not a.index.codes

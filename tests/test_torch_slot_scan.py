@@ -151,13 +151,31 @@ def test_gate_and_block_b_match_jax(b):
 @pytest.mark.parametrize("sm_count", [1, 132])
 @pytest.mark.parametrize(
     "b,n,slots",
-    [(8, 4096, 256), (2048, 1048576, 256), (12, 6144, 128), (2048, 1048576, 1024), (8, 16384, 512)],
+    [
+        (8, 4096, 256), (2048, 1048576, 256), (12, 6144, 128), (2048, 1048576, 1024), (8, 16384, 512),
+        (1024, 1048576, 512), (1, 65536, 32), (65, 65536, 32), (2047, 65536, 1024), (3, 96, 96),
+        (2048, 33554432, 32),
+    ],
 )
 def test_kernel_tiling_covers_columns(b, n, slots, sm_count):
     n_range, n_ranges = slot_scan.kernel_tiling(b, n, slots, sm_count)
-    assert n_range % slots == 0
-    assert (n_ranges - 1) * n_range < n <= n_ranges * n_range
+    assert n_range % slots == 0  # whole slot rows
+    assert (n_ranges - 1) * n_range < n <= n_ranges * n_range  # the ranges cover N, none empty
     assert n_ranges <= 65535  # CUDA grid.y limit
+    assert slots % slot_scan.kernel_tile_width(slots) == 0
+
+
+@pytest.mark.parametrize(
+    "b,n,slots", [(2048, 1048576, 256), (2048, 1048576, 1024), (1024, 1048576, 512)]
+)
+def test_kernel_tiling_fills_the_card_at_the_timed_shapes(b, n, slots):
+    """At chip_smoke's timed shapes the grid (128-row query tiles x ranges
+    x slot groups, one CTA per SM) gives every one of 132 SMs several CTAs,
+    and its last wave is at least 90 % full."""
+    _, n_ranges = slot_scan.kernel_tiling(b, n, slots, 132)
+    ctas = -(-b // 128) * (slots // slot_scan.kernel_tile_width(slots)) * n_ranges
+    assert ctas >= 4 * 132
+    assert ctas / (-(-ctas // 132) * 132) >= 0.9
 
 
 @pytest.mark.parametrize("keep", [1, 2])
@@ -173,17 +191,21 @@ def test_kernel_input_checks_raise(keep):
         (q, codes, scale.double(), mask, 256),
         (q, codes, scale, mask[:100], 256),
         (q, codes, scale, mask, 100),  # slots not a multiple of 32
-        (q, codes, scale, mask, 384),  # above 256 and not a multiple of it
-        (q, codes, scale, mask, 2048),  # more slots than 4 groups of 256
+        (q, codes, scale, mask, 384),  # does not divide N (and above 256 for keep 2)
+        (q, codes, scale, mask, 2048),  # more slots than the top-1 mode's 1024
         (q, codes[:4000], scale[:4000], mask[:4000], 256),  # N % S
         (q[:, :96], codes[:, :96].contiguous(), scale, mask, 256),  # D % 64
         (q, codes.t().contiguous().t(), scale, mask, 256),  # not contiguous
     ]
-    # S=512: two slot groups of the top-1 mode; the top-2 mode holds 256
+    # any multiple of 32 that divides N: up to 1024 slots in the top-1 mode, 256 in the top-2
+    wide = (q, codes[:3072], scale[:3072], mask[:3072])
+    slot_scan._check_kernel_inputs(*wide, 96, keep)
     if keep == 1:
         slot_scan._check_kernel_inputs(q, codes, scale, mask, 512, keep)
+        slot_scan._check_kernel_inputs(*wide, 384, keep)
     else:
         bad.append((q, codes, scale, mask, 512))
+        bad.append((*wide, 384))
     for args in bad:
         with pytest.raises((ValueError, TypeError)):
             slot_scan._check_kernel_inputs(*args, keep)

@@ -29,7 +29,7 @@ from nucliadb_tpu_torch.index.text_engine import fuzzy as tfuzzy
 from nucliadb_tpu_torch.index.text_engine import host_tier as tht
 from nucliadb_tpu_torch.index.text_engine import tokenizer as ttok
 from nucliadb_tpu_torch.ops import bm25
-from torch_test_helpers import assert_same_results
+from torch_test_helpers import as_port, assert_same_results
 
 DOCS = [
     ("r1/f1", "the quick brown fox jumps over the lazy dog", ["/t/t"]),
@@ -68,7 +68,7 @@ def _pair(segs, deletions=(), prev=(None, None)):
         [(jbuilder.open_text_segment(p), q) for p, q in segs], deletions, prev=prev[0]
     )
     te = teng.DeviceTextEngine(
-        [(tbuilder.open_text_segment(p), q) for p, q in segs], deletions, prev=prev[1],
+        [(tbuilder.open_text_segment(p), as_port(q)) for p, q in segs], as_port(list(deletions)), prev=prev[1],
         device="cpu",
     )
     return je, te
@@ -97,7 +97,7 @@ def assert_same_matched(jm, tm):
 
 def _search_both(je, te, need_matched=True, **kw):
     j = je.search(jeng.TextQuery(**kw), need_matched=need_matched)
-    t = te.search(teng.TextQuery(**kw), need_matched=need_matched)
+    t = te.search(teng.TextQuery(**as_port(kw)), need_matched=need_matched)
     assert_same_hits(j[0], t[0])
     assert_same_matched(j[1], t[1])
     return t
@@ -105,7 +105,7 @@ def _search_both(je, te, need_matched=True, **kw):
 
 def _batch_both(je, te, kws, need_matched=True):
     jout = je.search_batch([jeng.TextQuery(**kw) for kw in kws], need_matched=need_matched)
-    tout = te.search_batch([teng.TextQuery(**kw) for kw in kws], need_matched=need_matched)
+    tout = te.search_batch([teng.TextQuery(**as_port(kw)) for kw in kws], need_matched=need_matched)
     assert len(jout) == len(tout) == len(kws)
     for (jh, jm), (th, tm) in zip(jout, tout):
         assert_same_hits(jh, th)
@@ -167,7 +167,7 @@ def test_segment_files_interchange(tmp_path, writer):
         segment_list=[(metas[writer], Seq(1)), (metas[other], Seq(2))], deletion_list=[("r1/", Seq(3))],
     )
     jm = jbuilder.merge_text_segments(str(tmp_path / "jm"), idx, kind="text")
-    tm = tbuilder.merge_text_segments(str(tmp_path / "tm"), idx, kind="text")
+    tm = tbuilder.merge_text_segments(str(tmp_path / "tm"), as_port(idx), kind="text")
     assert jm.records == tm.records
     assert _open_fields(tbuilder.open_text_segment(tm.path)) == _open_fields(jbuilder.open_text_segment(jm.path))
 
@@ -218,8 +218,8 @@ def test_queries_match_reference(tmp_path, device_route, n_segments):
 def test_batch_equals_single(tmp_path, device_route):
     _, te = _pair(_split(tmp_path, DOCS, 2))
     kws = [QUERIES[n] for n in ("bm25", "lazy_dog", "facet", "and", "exclusion")]
-    for kw, (bh, bm) in zip(kws, te.search_batch([teng.TextQuery(**kw) for kw in kws])):
-        sh, sm = te.search(teng.TextQuery(**kw))
+    for kw, (bh, bm) in zip(kws, te.search_batch([teng.TextQuery(**as_port(kw)) for kw in kws])):
+        sh, sm = te.search(teng.TextQuery(**as_port(kw)))
         assert [(h.key, h.score) for h in bh] == [(h.key, h.score) for h in sh]
         np.testing.assert_array_equal(bm, sm)
 
@@ -255,9 +255,9 @@ def test_host_queries_match_reference(tmp_path, device_route):
     assert te.prefix_terms("qu") == je.prefix_terms("qu")
     assert te.term_df("quick") == je.term_df("quick") and te.idf(2) == je.idf(2)
     assert te.doc_facets() == je.doc_facets()
-    assert te.filter_doc_ids(LabelAtom("/t/t")).tolist() == je.filter_doc_ids(LabelAtom("/t/t")).tolist()
+    assert te.filter_doc_ids(as_port(LabelAtom("/t/t"))).tolist() == je.filter_doc_ids(LabelAtom("/t/t")).tolist()
     q = dict(text="the quick lazy", top_k=5, all_terms=True, fuzzy=True)
-    assert te._plan_terms(teng.TextQuery(**q)) == je._plan_terms(jeng.TextQuery(**q))
+    assert te._plan_terms(teng.TextQuery(**as_port(q))) == je._plan_terms(jeng.TextQuery(**q))
 
 
 # ---------------------------------------------------------------------------
@@ -338,8 +338,8 @@ def test_incremental_matches_reference(tmp_path, device_route):
     _same_layout(*inc)
     for kw in INC_QUERIES:
         _search_both(*inc, **kw)
-        t_inc = inc[1].search(teng.TextQuery(**kw))
-        t_full = full[1].search(teng.TextQuery(**kw))
+        t_inc = inc[1].search(teng.TextQuery(**as_port(kw)))
+        t_full = full[1].search(teng.TextQuery(**as_port(kw)))
         assert [(h.key, h.score) for h in t_inc[0]] == [(h.key, h.score) for h in t_full[0]]
         np.testing.assert_array_equal(t_inc[1], t_full[1])
     _batch_both(*inc, [kw for kw in INC_QUERIES])

@@ -22,7 +22,7 @@ from nucliadb_tpu_torch.index import paragraph as tpara
 from nucliadb_tpu_torch.index import text as ttext
 from nucliadb_tpu_torch.index.text_engine import batcher as tbatcher
 from nucliadb_tpu_torch.ops import bm25
-from torch_test_helpers import RTOL
+from torch_test_helpers import RTOL, as_port
 
 
 def make_resource(rid, text, labels=None, groups=None, created=1000):
@@ -62,12 +62,12 @@ def _index(tmp_path, resources, indexer, name, deletions=()):
 
 def _para_pair(tmp_path, resources=RESOURCES, deletions=()):
     idx = _index(tmp_path, resources, jpara.ParagraphIndexer(), "p", deletions)
-    return jpara.ParagraphSearcher(idx), tpara.ParagraphSearcher(idx, device="cpu")
+    return jpara.ParagraphSearcher(idx), tpara.ParagraphSearcher(as_port(idx), device="cpu")
 
 
 def _text_pair(tmp_path, resources=RESOURCES):
     idx = _index(tmp_path, resources, jtext.TextIndexer(), "t")
-    return jtext.TextSearcher(idx), ttext.TextSearcher(idx, device="cpu")
+    return jtext.TextSearcher(idx), ttext.TextSearcher(as_port(idx), device="cpu")
 
 
 def _same_score(a, b):
@@ -84,7 +84,7 @@ def assert_same_paragraph_response(j, t):
 
 def _both_para(js, ts, **kw):
     j = js.search(jpara.ParagraphSearchRequest(**kw))
-    t = ts.search(tpara.ParagraphSearchRequest(**kw))
+    t = ts.search(tpara.ParagraphSearchRequest(**as_port(kw)))
     assert_same_paragraph_response(j, t)
     return t
 
@@ -174,9 +174,9 @@ def test_stopwords_and_phrase_totals(tmp_path, route):
 
 def test_refresh_with_prev_matches_reference(tmp_path, route):
     idx = _index(tmp_path, RESOURCES[:2], jpara.ParagraphIndexer(), "p")
-    j0, t0 = jpara.ParagraphSearcher(idx), tpara.ParagraphSearcher(idx, device="cpu")
+    j0, t0 = jpara.ParagraphSearcher(idx), tpara.ParagraphSearcher(as_port(idx), device="cpu")
     idx2 = _index(tmp_path, RESOURCES, jpara.ParagraphIndexer(), "p", deletions=[("r1/", Seq(9))])
-    j1, t1 = jpara.ParagraphSearcher(idx2, prev=j0), tpara.ParagraphSearcher(idx2, prev=t0, device="cpu")
+    j1, t1 = jpara.ParagraphSearcher(idx2, prev=j0), tpara.ParagraphSearcher(as_port(idx2), prev=t0, device="cpu")
     assert t1.engine.reused_groups == j1.engine.reused_groups
     for q in ("quick", "brown leaves", "secret"):
         _both_para(j1, t1, query=q, top_k=10)
@@ -222,7 +222,7 @@ def test_coalesced_requests_share_dispatches(tmp_path, monkeypatch):
 
 def _both_docs(js, ts, **kw):
     j = js.search(jtext.DocumentSearchRequest(**kw))
-    t = ts.search(ttext.DocumentSearchRequest(**kw))
+    t = ts.search(ttext.DocumentSearchRequest(**as_port(kw)))
     assert (t.total, t.facet_counts) == (j.total, j.facet_counts), kw
     assert [(h.key, h.rid, h.field) for h in t.hits] == [(h.key, h.rid, h.field) for h in j.hits], kw
     _same_score([h.score for h in j.hits], [h.score for h in t.hits])
@@ -257,7 +257,7 @@ def test_document_requests_match_reference(tmp_path, route):
         dict(), dict(filter=LabelAtom("/l/ls/a"), security_groups=[]), dict(filter=LabelAtom("/l/nope/x")),
         dict(range_creation=(1500, 2500)), dict(security_groups=["admins"]),
     ):
-        jp, tp = js.prefilter(**kw), ts.prefilter(**kw)
+        jp, tp = as_port(js.prefilter(**kw)), ts.prefilter(**as_port(kw))
         assert (tp.kind, sorted(tp.fields or [], key=str)) == (jp.kind, sorted(jp.fields or [], key=str))
 
 
@@ -282,14 +282,14 @@ def test_indexers_write_the_reference_segments(tmp_path):
         jsegs, tsegs = [], []
         for i, r in enumerate(RESOURCES):
             jm = jidx.index_resource(r, str(tmp_path / f"j{name}{i}"))
-            tm = tidx.index_resource(r, str(tmp_path / f"t{name}{i}"))
+            tm = tidx.index_resource(as_port(r), str(tmp_path / f"t{name}{i}"))
             assert fields(tm.path) == fields(jm.path)
-            assert tidx.deletions_for_resource(r) == jidx.deletions_for_resource(r)
+            assert tidx.deletions_for_resource(as_port(r)) == jidx.deletions_for_resource(r)
             jsegs.append((jm, Seq(i + 1)))
             tsegs.append((tm, Seq(i + 1)))
         dels = [("r2/", Seq(9))]
         jm = jidx.merge(SimpleOpenIndex(segment_list=jsegs, deletion_list=dels), str(tmp_path / f"jm{name}"))
-        tm = tidx.merge(SimpleOpenIndex(segment_list=tsegs, deletion_list=dels), str(tmp_path / f"tm{name}"))
+        tm = tidx.merge(as_port(SimpleOpenIndex(segment_list=tsegs, deletion_list=dels)), str(tmp_path / f"tm{name}"))
         assert fields(tm.path) == fields(jm.path)
     for q in ('hello "brown fox" -noise world', "state-of-the-art search", 'broken "quote here', '-a -b "c d" e'):
         assert tpara.parse_query(q) == jpara.parse_query(q)

@@ -33,7 +33,7 @@ from nucliadb_tpu.query_language import FacetPrefixAtom, KeyPrefixAtom, LabelAto
 from nucliadb_tpu.types import FieldId, PrefilterResult, Seq, SimpleOpenIndex
 from nucliadb_tpu_torch.index import vector as tvector
 from nucliadb_tpu_torch.ops import slot_scan
-from torch_test_helpers import assert_same_results
+from torch_test_helpers import as_port, assert_same_results
 
 DIM = 64
 
@@ -131,7 +131,7 @@ def test_unported_configurations_raise(tmp_path):
         with pytest.raises(NotImplementedError):
             tsegment.create_segment(str(tmp_path / flag), elems, tvector.VectorConfig(DIM, flags=[flag]))
     meta = tsegment.create_segment(str(tmp_path / "s"), elems, tvector.VectorConfig(DIM))
-    idx = SimpleOpenIndex(segment_list=[(meta, Seq(1))])
+    idx = tvector.SimpleOpenIndex(segment_list=[(meta, tvector.Seq(1))])
     with pytest.raises(NotImplementedError):
         tvector.VectorSearcher(tvector.VectorConfig(DIM, cardinality="multi"), idx, device="cpu")
     with mock.patch.dict(os.environ, {"NDBTPU_VECTOR_ARENA_BUDGET": "1000"}):
@@ -207,7 +207,7 @@ def searchers(tmp_path_factory):
                 cfg = jvector.VectorConfig(dimension=DIM, similarity=similarity)
                 js = jvector.VectorSearcher(cfg, open_index)
                 ts = tvector.VectorSearcher(
-                    tvector.VectorConfig.from_dict(cfg.to_dict()), open_index, device="cpu"
+                    tvector.VectorConfig.from_dict(cfg.to_dict()), as_port(open_index), device="cpu"
                 )
             assert (ts.index._host_arena is None) == (tier == "exact")
             _SEARCHERS[key] = (js, ts, _requests(similarity, dup, rng))
@@ -227,7 +227,7 @@ def test_searcher_matches_jax(searchers, tier, similarity, request_name):
     js, ts, requests = searchers(similarity, tier)
     kw = requests[request_name]
     ref = js.search(jvector.VectorSearchRequest(**kw))
-    got = ts.search(tvector.VectorSearchRequest(**kw))
+    got = ts.search(tvector.VectorSearchRequest(**as_port(kw)))
     _assert_same_hits(ref, got)
     if request_name == "prefilter_none":
         assert got == [[] for _ in got]
@@ -291,7 +291,7 @@ def int8_searchers(tmp_path_factory):
             ):
                 js = jvector.VectorSearcher(cfg, open_index)
                 ts = tvector.VectorSearcher(
-                    tvector.VectorConfig.from_dict(cfg.to_dict()), open_index, device="cpu"
+                    tvector.VectorConfig.from_dict(cfg.to_dict()), as_port(open_index), device="cpu"
                 )
             q = np.stack(
                 [dup + 0.01 * rng.standard_normal(INT8_DIM).astype(np.float32)]
@@ -334,7 +334,7 @@ def test_int8_route_matches_rebuilt_tpu_route(int8_searchers, similarity, reques
     js, ts, _, q = int8_searchers(similarity)
     kw = dict(INT8_REQUESTS[request_name], with_duplicates=not dedup)
     jreq = jvector.VectorSearchRequest(vectors=q, **kw)
-    treq = tvector.VectorSearchRequest(vectors=q, **kw)
+    treq = tvector.VectorSearchRequest(vectors=q, **as_port(kw))
     jmask, tmask = js._build_mask(jreq), ts._build_mask(treq)
     if jmask is None:
         assert tmask is None
@@ -408,13 +408,13 @@ def test_incremental_prev_build_equals_full_build(tmp_path, threshold):
     metas = []
     for s, n in enumerate((1200, 900, 500)):
         elems = _elems(tsegment, rng, n, INT8_DIM, s * 2000)
-        metas.append((tsegment.create_segment(str(tmp_path / f"s{s}"), elems, cfg), Seq(s + 1)))
+        metas.append((tsegment.create_segment(str(tmp_path / f"s{s}"), elems, cfg), tvector.Seq(s + 1)))
     q = rng.standard_normal((3, INT8_DIM)).astype(np.float32)
     patch = threshold if threshold is not None else tdevice.EXACT_SCAN_THRESHOLD
     with mock.patch.object(tdevice, "EXACT_SCAN_THRESHOLD", patch):
-        a = tvector.VectorSearcher(cfg, SimpleOpenIndex(segment_list=metas[:2]), device="cpu")
+        a = tvector.VectorSearcher(cfg, tvector.SimpleOpenIndex(segment_list=metas[:2]), device="cpu")
         before = a.index.search(q, 10)
-        grown = SimpleOpenIndex(segment_list=metas, deletion_list=[("r2/", Seq(4))])
+        grown = tvector.SimpleOpenIndex(segment_list=metas, deletion_list=[("r2/", tvector.Seq(4))])
         b = tvector.VectorSearcher(cfg, grown, prev=a, device="cpu")
         full = tvector.VectorSearcher(cfg, grown, device="cpu")
         # a's tail went to b; another successor of a builds from scratch

@@ -1,6 +1,10 @@
 """Inputs and checks shared by the port's CPU and CUDA tests (numpy only,
 so the CUDA tests run where jax is not installed)."""
 
+import dataclasses
+import enum
+import importlib
+
 import numpy as np
 
 # f32 sums taken in another order (another BLAS, the card) differ by a few
@@ -90,3 +94,30 @@ def assert_same_results(ref_s, ref_i, got_s, got_i):
                 want = set(ref_i[row, start:pos].tolist())
                 assert set(got_i[row, start:pos].tolist()) == want, (row, start, pos)
                 start = pos
+
+
+def as_port(obj):
+    """``obj`` with every instance of a class of the JAX package's host
+    modules (``types``, ``query_language``, ``models.internal``) rebuilt as
+    the port's copy of that class, field by field; containers are rebuilt,
+    other values kept.
+
+    The port keeps its own copies of those modules, so their classes and
+    enums are distinct: ``evaluate_bitset`` dispatches on ``isinstance``
+    and the enums compare by identity, and an object of one package would
+    be mis-read by the other. A test that builds one input for both hands
+    the port ``as_port(input)``."""
+    cls = type(obj)
+    if cls.__module__.startswith("nucliadb_tpu."):
+        port = importlib.import_module("nucliadb_tpu_torch" + cls.__module__[len("nucliadb_tpu"):])
+        port_cls = getattr(port, cls.__qualname__)
+        if isinstance(obj, enum.Enum):
+            return port_cls[obj.name]
+        if dataclasses.is_dataclass(obj):
+            return port_cls(**{f.name: as_port(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+        raise TypeError(f"cannot rebuild {cls.__module__}.{cls.__qualname__} as the port's")
+    if isinstance(obj, dict):
+        return {as_port(k): as_port(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        return cls(as_port(x) for x in obj)
+    return obj
