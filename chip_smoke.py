@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 
     python3 chip_smoke.py
 
-It drives the port's vector-search paths, the semantic leg of /find, and
-its keyword leg once at full size, in phases that each print one line:
+It drives the port's vector-search paths, the semantic leg of /find, its
+keyword leg and the index node once at full size, in phases that each
+print one line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
@@ -75,9 +76,33 @@ its keyword leg once at full size, in phases that each print one line:
      whole batches on both routes;
    - a refresh adding 2,000 paragraphs: 3 groups reused, under a tenth of
      the first build's upload, answers bit-identical to a fresh build.
+7. node: the index node end to end, ``EmbeddedNode(tmp, device="cuda")``
+   with one shard of vectorset ``m`` (768-d, dot, int8): 1,000 resources of
+   200 paragraphs (200,000, one target segment of the vector merge policy),
+   made from ``SEED`` (paragraph text from config 3's vocabulary, clustered
+   vectors, a label on every tenth paragraph, a title, a JSON field, three
+   relations, the access group "restricted" on every seventh resource, one
+   resource indexed hidden), each through ``node.index``; merge rounds until
+   no job is left (a vector and a paragraph merge), then the sync, each
+   timed. Then, counted: 64 hybrid requests (body + vector, top-20,
+   paragraph and document legs) on the default keyword route and again on
+   the device route (``NDBTPU_TEXT_HOST_TIER=0`` set before a second node
+   over the same data directory opens its searcher): the top-2 kernel must
+   launch for every vector leg and the BM25 program dispatch on the device
+   route; vector recall@10 >= 0.95 against an exact f32 oracle over the
+   alive, visible paragraphs; paragraph and document legs held to the
+   float64 BM25 oracle. Then per-leg host times; 64 requests from 8 threads
+   (fewer vector dispatches than requests, each answer its solo answer);
+   the same 64 requests answered by a searcher on the CPU over the same
+   segments (equal within 1e-4); label, security, JSON ("and", "or"),
+   key-prefix, creation-date and min_score filters, a graph and a document
+   request; a deletion, then a delta of 20 resources (the arena extended
+   in place, the paragraph group reused, answers equal to a fresh
+   searcher's).
 
-It then prints the kernels' JSON line (each kernel's launches on its path,
-times, bound from this run's shapes and its share of it) and, last,
+It then prints the kernels' JSON line (each kernel's launches on its path
+and on the node phase's counted path, times, bound from this run's shapes
+and its share of it) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
 """
@@ -406,33 +431,34 @@ def phase_binary_kernel(torch, quant, binary_scan):
     return max_err, kernel_ms, plain_ms
 
 
-def make_corpus(torch, n, d, n_queries):
+def make_corpus(torch, n, d, n_queries, device="cuda"):
     """bench.py's recipe on the card: rows and queries are a random centre
     plus 0.35 * N(0, 1) noise, L2-normalised. As in bench.py, each centre
     owns a contiguous block of rows: a layout striding clusters by a
     multiple of the slot count would put a whole cluster into one slot."""
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    centers = torch.randn(N_CENTERS, d, generator=gen, device="cuda")
-    vecs = torch.empty((n, d), device="cuda")
+    centers = torch.randn(N_CENTERS, d, generator=gen, device=device)
+    vecs = torch.empty((n, d), device=device)
     for lo in range(0, n, 131072):
         hi = min(n, lo + 131072)
-        assign = torch.arange(lo, hi, device="cuda") * N_CENTERS // n
-        block = centers[assign] + NOISE * torch.randn(hi - lo, d, generator=gen, device="cuda")
+        assign = torch.arange(lo, hi, device=device) * N_CENTERS // n
+        block = centers[assign] + NOISE * torch.randn(hi - lo, d, generator=gen, device=device)
         vecs[lo:hi] = block / block.norm(dim=-1, keepdim=True)
-    assign = torch.randint(0, N_CENTERS, (n_queries,), generator=gen, device="cuda")
-    q = centers[assign] + NOISE * torch.randn(n_queries, d, generator=gen, device="cuda")
+    assign = torch.randint(0, N_CENTERS, (n_queries,), generator=gen, device=device)
+    q = centers[assign] + NOISE * torch.randn(n_queries, d, generator=gen, device=device)
     return vecs, q / q.norm(dim=-1, keepdim=True)
 
 
 def exact_oracle(torch, vecs, alive, q, k):
-    """Exact f32 top-k ids over the alive rows, on the card in chunks."""
-    best_s = torch.full((q.shape[0], k), -float("inf"), device="cuda")
-    best_i = torch.full((q.shape[0], k), -1, dtype=torch.long, device="cuda")
+    """Exact f32 top-k ids over the alive rows, on their device in chunks."""
+    dev = vecs.device
+    best_s = torch.full((q.shape[0], k), -float("inf"), device=dev)
+    best_i = torch.full((q.shape[0], k), -1, dtype=torch.long, device=dev)
     for lo in range(0, vecs.shape[0], 131072):
         s = q @ vecs[lo : lo + 131072].T
         s = torch.where(alive[lo : lo + 131072], s, -float("inf"))
-        ids = torch.arange(lo, lo + s.shape[1], device="cuda").expand_as(s)
+        ids = torch.arange(lo, lo + s.shape[1], device=dev).expand_as(s)
         best_s, pos = torch.cat([best_s, s], 1).topk(k, dim=1)
         best_i = torch.gather(torch.cat([best_i, ids], 1), 1, pos)
     return best_i.cpu().numpy()
@@ -1280,6 +1306,514 @@ def host_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+# ---------------------------------------------------------------------------
+# the index node: indexing, merging, syncing and hybrid shard search
+# ---------------------------------------------------------------------------
+
+NODE_FULL = {
+    "resources": 1_000,
+    # paragraphs per resource: 200,000 in all, one target segment of the
+    # vector merge policy (VECTOR_MAX_SEGMENT)
+    "paragraphs": 200,
+    "dim": DIM,
+    "hybrid": 64,  # single hybrid requests on each keyword route
+    "threads": 8,
+    "threaded": 64,  # hybrid requests through the coalescers from the threads
+    "delta": 20,  # resources indexed after the deletion
+    "cpu": 64,  # hybrid requests answered again by a searcher on the CPU
+}
+NODE_TOP_K = 20
+NODE_CPU_RTOL = 1e-4
+NODE_HIDDEN = 3  # the resource indexed with hidden=True
+NODE_DELETED = 11  # the resource deleted before the delta
+NODE_TEAMS = ("red", "blue", "green", "gold")
+
+
+def node_rid(r: int) -> str:
+    return f"n{r:05d}"
+
+
+def node_restricted(r: int) -> bool:
+    return r % 7 == 0  # access group "restricted"; every other resource is public
+
+
+class NodeCorpus:
+    """The node's resources, made from ``SEED``: paragraph text from
+    bench_suite.py config 3's vocabulary, vectors from the clustered
+    generator, a label on every tenth paragraph, a title, a JSON field
+    ``{"year", "team"}``, three relations per resource, and the access group
+    "restricted" on every seventh resource. Row i is paragraph i % P of
+    resource i // P; the last ``delta`` resources are indexed later."""
+
+    def __init__(self, torch, cfg, device):
+        self.cfg = cfg
+        self.P = cfg["paragraphs"]
+        self.R = cfg["resources"]
+        n_all = (self.R + cfg["delta"]) * self.P
+        n_q = max(cfg["hybrid"], cfg["threaded"], cfg["cpu"])
+        self.vecs, q = make_corpus(torch, n_all, cfg["dim"], n_q, device)
+        self.vecs_np = self.vecs.cpu().numpy()
+        self.q_np = q.cpu().numpy()
+        self.words = kw_vocab()
+        self.texts, _ = kw_texts(self.words, n_all, 13)
+        self.titles, _ = kw_texts(self.words, self.R + cfg["delta"], 14)
+        rng = np.random.default_rng(SEED)
+        self.bodies = []
+        for _ in range(n_q):  # bench_suite.py's OR queries: two words and a typo
+            t1, t2 = self.words[int(rng.integers(0, 2000))], self.words[int(rng.integers(0, 2000))]
+            self.bodies.append(f"{t1} {t2} {'quikc' if len(self.bodies) % 2 else 'borwn'}")
+        self.vkey_row: dict[str, int] = {}
+        self.pkey_row: dict[str, int] = {}
+
+    def resource(self, r: int):
+        from nucliadb_tpu_torch.models.internal import (
+            IndexParagraph, IndexRelation, RelationNode, ResourceDoc, Security, TextInformation, VectorSentence,
+        )
+
+        rid, P = node_rid(r), self.P
+        parts = self.texts[r * P : (r + 1) * P]
+        rd = ResourceDoc(resource_id=rid, created=1000 + r, modified=1000 + r)
+        rd.texts["t/body"] = TextInformation(text=" ".join(parts))
+        rd.texts["a/title"] = TextInformation(text=" ".join(self.titles[r].split()[:6]))
+        paras, start = {}, 0
+        for j, text in enumerate(parts):
+            i, end = r * P + j, start + len(text)
+            para = IndexParagraph(start=start, end=end, labels=["/l/tenth"] if i % 10 == 0 else [])
+            vkey, pkey = f"{rid}/t/body/{j:03d}/{start}-{end}", f"{rid}/t/body/{start}-{end}"
+            para.vectorsets_sentences["m"] = {vkey: VectorSentence(vector=self.vecs_np[i])}
+            paras[pkey] = para
+            self.vkey_row[vkey], self.pkey_row[pkey] = i, i
+            start = end + 1
+        rd.paragraphs["t/body"] = paras
+        rd.json_fields["a/meta"] = json.dumps({"year": 2000 + r % 25, "team": NODE_TEAMS[r % 4]})
+        rd.relations["t/body"] = [
+            IndexRelation(
+                source=RelationNode(value=rid, ntype="RESOURCE"),
+                target=RelationNode(value=f"entity{(3 * r + k) % 97}", ntype="ENTITY", subtype="team"),
+                relation="ENTITY",
+                label=("mentions", "praises", "cites")[k],
+            )
+            for k in range(3)
+        ]
+        if node_restricted(r):
+            rd.security = Security(access_groups=["restricted"])
+        return rd
+
+
+def node_observed(family: str, kinds) -> dict:
+    """Seconds the node's indexing or merge observer has summed per index
+    kind (its prometheus histogram ``ndbtpu_<family>_duration_seconds``)."""
+    from nucliadb_tpu_torch.telemetry.metrics import REGISTRY
+
+    name = f"ndbtpu_{family}_duration_seconds_sum"
+    return {k: REGISTRY.get_sample_value(name, {"kind": k}) or 0.0 for k in kinds}
+
+
+def device_busy_ms(torch, fn) -> float:
+    """Device ms that the kernels and copies of ``fn()`` took, summed by
+    ``torch.profiler`` (CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    check(total_us > 0, "torch.profiler saw no device time")
+    return total_us / 1e3
+
+
+def node_resource_of(hit_key: str) -> int:
+    return int(hit_key.split("/", 1)[0][1:])
+
+
+def node_legs(resp):
+    """Every resource a response returned, by leg."""
+    return {
+        "vector": [node_resource_of(h.key) for h in resp.vector],
+        "paragraph": [node_resource_of(h.paragraph_id) for h in (resp.paragraph.hits if resp.paragraph else [])],
+        "document": [node_resource_of(h.key) for h in (resp.document.hits if resp.document else [])],
+        "graph": [node_resource_of(p.resource_field) for p in resp.graph],
+    }
+
+
+def node_same(a, b, rtol, what):
+    """Two ShardSearchResponses equal up to ties: vector keys and paragraph
+    and document hits rank by rank within ``rtol``, the same ids above the
+    tie band at the cut."""
+    from types import SimpleNamespace
+
+    def ranked(x, y, key, leg):
+        check(len(x) == len(y), f"{what}, {leg}: {len(x)} vs {len(y)} hits")
+        if not x:
+            return
+        sx, sy = np.array([h.score for h in x]), np.array([h.score for h in y])
+        check(bool(np.all(np.abs(sx - sy) <= rtol * np.abs(sx) + 1e-6)), f"{what}, {leg}: scores differ")
+        band = sx[-1] + rtol * abs(sx[-1]) + 1e-6
+        check({key(h) for h in x if h.score > band} == {key(h) for h in y if h.score > band}, f"{what}, {leg}: ids differ")
+
+    ranked(a.vector, b.vector, lambda h: h.key, "vector")
+    for leg, key in (("paragraph", lambda h: h.paragraph_id), ("document", lambda h: h.key)):
+        la, lb = getattr(a, leg), getattr(b, leg)
+        check((la is None) == (lb is None), f"{what}: {leg} leg present on one side only")
+        if la is not None:
+            ranked(la.hits, lb.hits, key, leg)
+            check(la.total == lb.total, f"{what}, {leg}: total {la.total} vs {lb.total}")
+    empty = SimpleNamespace(kind=None, fields=())
+    check((a.prefilter or empty).kind == (b.prefilter or empty).kind, f"{what}: prefilter differs")
+    check([(p.resource_field, p.target.value) for p in a.graph] == [(p.resource_field, p.target.value) for p in b.graph],
+          f"{what}: graph paths differ")
+
+
+def node_hybrid(corpus, i, **kw):
+    from nucliadb_tpu_torch.shard import ShardSearchRequest
+
+    return ShardSearchRequest(
+        body=corpus.bodies[i], vector=corpus.q_np[i], top_k=NODE_TOP_K, paragraph=True, document=True, **kw
+    )
+
+
+def node_check_keyword(corpus, shard, req, resp, what):
+    """The paragraph and document legs against the float64 BM25 oracle on
+    the searcher's own engines (ids equal up to ties, scores within 1e-5,
+    the exact matched totals)."""
+    from nucliadb_tpu_torch.index.text_engine.engine import TextQuery, _CountOnly
+
+    para_oracle, doc_oracle = corpus.oracles(shard)
+    q = TextQuery(text=req.body, top_k=req.top_k, fuzzy=True)
+    kw_check_hits(para_oracle, q, resp.paragraph.hits, _CountOnly(resp.paragraph.total, 0), f"{what}, paragraph leg")
+    doc_ids = {k: i for i, k in enumerate(shard.text.engine.keys)}
+    hits = [engine_hit(h, doc_ids[h.key]) for h in resp.document.hits]
+    kw_check_hits(doc_oracle, TextQuery(text=req.body, top_k=req.top_k), hits,
+                  _CountOnly(resp.document.total, 0), f"{what}, document leg")
+
+
+def node_recall(corpus, hits_rows, oracle) -> float:
+    return float(np.mean([
+        len({corpus.vkey_row[h.key] for h in hits[:TOP_K]} & set(oracle[r].tolist())) / TOP_K
+        for r, hits in enumerate(hits_rows)
+    ]))
+
+
+def phase_node(torch, tmp, cfg, device="cuda"):
+    """The index node on ``device`` (see the module docstring); prints one
+    line per part and returns the launch and dispatch counts of its counted
+    main path (the hybrid requests on both keyword routes)."""
+    import os
+    import threading
+    from types import SimpleNamespace
+
+    from nucliadb_tpu_torch.index.json import JsonPredicate
+    from nucliadb_tpu_torch.index.paragraph import ParagraphSearchRequest
+    from nucliadb_tpu_torch.index.relation import GraphSearchRequest, NodePattern
+    from nucliadb_tpu_torch.index.text import DocumentSearchRequest
+    from nucliadb_tpu_torch.index.vector import LabelAtom, VectorConfig, VectorSearchRequest
+    from nucliadb_tpu_torch.index.vector.batcher import coalescer
+    from nucliadb_tpu_torch.ops import binary_scan, bm25, slot_scan
+    from nucliadb_tpu_torch.services import EmbeddedNode
+    from nucliadb_tpu_torch.services.searcher import SyncedSearcher
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    corpus = NodeCorpus(torch, cfg, device)
+    t_gen = time.perf_counter() - t0
+    R, P, k = corpus.R, corpus.P, NODE_TOP_K
+
+    def oracles(shard):
+        cached = getattr(corpus, "_oracles", None)
+        if cached is None or cached[0] is not shard:
+            cached = corpus._oracles = (shard, KwOracle(shard.paragraph.engine), KwOracle(shard.text.engine))
+        return cached[1:]
+
+    corpus.oracles = oracles
+
+    # ---- build: index, merge, sync ------------------------------------------
+    node_dir = f"{tmp}/node"
+    node = EmbeddedNode(node_dir, device=device)
+    sid = node.create_shard("kb", {"m": VectorConfig(dimension=cfg["dim"])}, shard_id="shard0")
+    node.configure_shards([{"shard_id": sid, "prewarm_enabled": True}])  # sync opens the searcher
+    kinds = ("text", "paragraph", "relation", "json", "vector")
+    index_s0, merge_s0 = node_observed("indexing", kinds), node_observed("merge", kinds)
+    # busy seconds of the indexer and worker services (their utilization
+    # counters): the segment builds and merges above are parts of them
+    busy0 = node.indexer.utilization.totals()[0], node.worker.utilization.totals()[0]
+    t = time.perf_counter()
+    for r in range(R):
+        node.index(sid, corpus.resource(r), hidden=r == NODE_HIDDEN)
+    t_index = time.perf_counter() - t
+    t, rounds, merged = time.perf_counter(), 0, {}
+    while True:
+        stats = node.tick_background()
+        rounds += 1
+        if stats["jobs_enqueued"] == 0 and stats["merged"] == 0:
+            break
+    t_merge = time.perf_counter() - t
+    index_s = {k: round(v - index_s0[k], 2) for k, v in node_observed("indexing", kinds).items()}
+    merge_s = {k: round(v - merge_s0[k], 2) for k, v in node_observed("merge", kinds).items()}
+    busy = node.indexer.utilization.totals()[0] - busy0[0], node.worker.utilization.totals()[0] - busy0[1]
+    segments = {
+        index.full_name: [s.records for s in node.metadata.ready_segments(index.id)]
+        for index in node.metadata.get_indexes(sid)
+    }
+    visible = (R - 1) * P
+    check(segments["vector/m"] == [visible, P] or segments["vector/m"] == [P, visible],
+          f"vector segments after the merges: {segments['vector/m']}")
+    check(segments["paragraph"] == [R * P], f"paragraph segments after the merges: {segments['paragraph']}")
+    check(all(len(v) == 1 for name, v in segments.items() if name != "vector/m"), f"segments {segments}")
+    t = time.perf_counter()
+    check(node.wait_for_sync() == [sid], "sync did not open the shard")
+    sync()
+    t_sync = time.perf_counter() - t
+    shard = node.searcher.shard(sid)
+    vindex = shard.vectors["m"].index
+    check(vindex.codes is not None and not vindex.host_resident(), "the vector leg is not on the int8 route")
+    tier = shard.paragraph.engine.host_tier()
+    print(
+        f"node build: {R} resources x {P} paragraphs ({R * P} paragraphs, dim {cfg['dim']}) on {device}; "
+        f"gen {t_gen:.1f}s; indexed in {t_index:.1f}s ({R / t_index:.1f} resources/s; indexer busy {busy[0]:.1f}s, "
+        f"of it segment builds by kind, s: {json.dumps(index_s)}); {rounds} background rounds, merges {t_merge:.1f}s "
+        f"(worker busy {busy[1]:.1f}s, of it merges by kind, s: {json.dumps(merge_s)}) "
+        f"-> segments {json.dumps(segments)}; sync {t_sync:.1f}s (p_pad {vindex.p_pad}, "
+        f"{len(shard.paragraph.engine.groups)} paragraph group(s)); host WAND tier {'on' if tier else 'off'}",
+        flush=True,
+    )
+
+    # the exact f32 oracle over the alive, visible paragraphs
+    alive = torch.ones(corpus.vecs.shape[0], dtype=torch.bool, device=corpus.vecs.device)
+    alive[R * P :] = False
+    alive[NODE_HIDDEN * P : (NODE_HIDDEN + 1) * P] = False
+    q_dev = torch.from_numpy(corpus.q_np).to(corpus.vecs.device)
+    oracle = exact_oracle(torch, corpus.vecs, alive, q_dev, TOP_K)
+    n_h = cfg["hybrid"]
+    reqs = [node_hybrid(corpus, i) for i in range(n_h)]
+
+    # ---- the main path, counted: hybrid requests on both keyword routes ------
+    os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+    reset_launches(slot_scan, binary_scan)
+    bm25.DISPATCHES.clear()
+    default_out = [node.search(sid, r) for r in reqs]
+    default_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+    os.environ["NDBTPU_TEXT_HOST_TIER"] = "0"  # set before the device-route node's searcher opens
+    node_dev = EmbeddedNode(node_dir, device=device)  # a second node over the same data directory
+    t = time.perf_counter()
+    shard_dev = node_dev.searcher.shard(sid)
+    sync()
+    t_open_dev = time.perf_counter() - t
+    reset_launches(slot_scan, binary_scan)
+    bm25.DISPATCHES.clear()
+    device_out = [node_dev.search(sid, r) for r in reqs]
+    device_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+    # ---------------------------------------------------------------------------
+    if device == "cuda":  # on the CPU the wrappers take their plain versions, which count nothing
+        check(default_counts.get("top2", 0) >= n_h, f"default route: the top-2 kernel launched {default_counts}")
+        check(device_counts.get("top2", 0) >= n_h, f"device route: the top-2 kernel launched {device_counts}")
+    check(device_counts.get("single", 0) + device_counts.get("batch", 0) >= n_h,
+          f"device route: the BM25 program dispatched {device_counts}")
+    check(shard_dev.paragraph.engine.host_tier() is None, "the device-route searcher kept the host tier")
+    if tier is not None:
+        check(default_counts.get("single", 0) + default_counts.get("batch", 0) == 0,
+              f"default route: the host tier dispatched {default_counts}")
+    check(all(default_counts.get(m, 0) == 0 and device_counts.get(m, 0) == 0 for m in ("top1", "binary")),
+          "the node launched a kernel of another route")
+    for name, shard_x, out in (("default route", shard, default_out), ("device route", shard_dev, device_out)):
+        for i, (req, resp) in enumerate(zip(reqs, out)):
+            check(len(resp.vector) == k and resp.paragraph is not None and resp.document is not None,
+                  f"{name}, hybrid {i}: a leg is missing")
+            check(NODE_HIDDEN not in node_legs(resp)["vector"], f"{name}, hybrid {i}: a hidden vector came back")
+            node_check_keyword(corpus, shard_x, req, resp, f"{name}, hybrid {i}")
+        recall = node_recall(corpus, [resp.vector for resp in out], oracle)
+        check(recall >= RECALL_BAR, f"{name}: vector leg recall@10 {recall} < {RECALL_BAR}")
+    for i, (a, b) in enumerate(zip(default_out, device_out)):
+        node_same(a, b, KW_RTOL, f"hybrid {i}: default vs device route")
+
+    # ---- timings: a single hybrid request and each leg ----------------------
+    req0 = reqs[0]
+    timings = {}
+    for name, node_x, shard_x in (("default", node, shard), ("device", node_dev, shard_dev)):
+        timings[f"hybrid_{name}"] = host_ms(lambda: node_x.search(sid, req0), 5)
+        timings[f"paragraph_leg_{name}"] = host_ms(
+            lambda: shard_x.paragraph.search(ParagraphSearchRequest(query=req0.body, top_k=k)), 5
+        )
+        timings[f"document_leg_{name}"] = host_ms(
+            lambda: shard_x.text.search(DocumentSearchRequest(query=req0.body, top_k=k)), 5
+        )
+    timings["vector_leg"] = host_ms(
+        lambda: shard.vectors["m"].search(VectorSearchRequest(vectors=req0.vector, top_k=k)), 5
+    )
+    timings["prefilter_security_json"] = host_ms(
+        lambda: shard.compute_prefilter(node_hybrid(corpus, 0, security_groups=[],
+                                                     json_filter=JsonPredicate(path="team", op="eq", value="red"))), 5
+    )
+
+    if device == "cuda":
+        for name, node_x in (("default", node), ("device", node_dev)):
+            busy = device_busy_ms(torch, lambda: [node_x.search(sid, r) for r in reqs[:16]]) / 16
+            timings[f"device_busy_per_hybrid_{name}"] = busy
+            timings[f"device_idle_share_{name}"] = 1.0 - busy / timings[f"hybrid_{name}"]
+
+    # ---- coalescers: threaded requests on both routes -------------------------
+    n_t = cfg["threaded"]
+    threaded = [node_hybrid(corpus, i % n_h) for i in range(n_t)]
+    t_burst, coalesced, t_seq = {}, {}, {}
+    for name, node_x, solo in (("device", node_dev, device_out), ("default", node, default_out)):
+        t = time.perf_counter()
+        for r in threaded:  # the same requests one after another, warm
+            node_x.search(sid, r)
+        t_seq[name] = (time.perf_counter() - t) * 1e3
+        t_out = [None] * n_t
+        errors = []
+
+        def worker(ix):
+            try:
+                for i in ix:
+                    t_out[i] = node_x.search(sid, threaded[i])
+            except BaseException as e:  # reported below
+                errors.append(e)
+
+        coalesced0 = coalescer.dispatches
+        threads = [threading.Thread(target=worker, args=(range(w, n_t, cfg["threads"]),)) for w in range(cfg["threads"])]
+        t = time.perf_counter()
+        [th.start() for th in threads]
+        [th.join(timeout=600) for th in threads]
+        t_burst[name] = (time.perf_counter() - t) * 1e3
+        coalesced[name] = coalescer.dispatches - coalesced0
+        check(not errors and all(x is not None for x in t_out), f"{name} route: threaded requests failed: {errors[:1]}")
+        check(coalesced[name] < n_t, f"{name} route: {n_t} threaded requests took {coalesced[name]} vector dispatches")
+        for i, resp in enumerate(t_out):
+            node_same(resp, solo[i % n_h], KW_RTOL, f"{name} route: threaded request {i} vs its solo answer")
+
+    # ---- the card against the CPU, over the same synced segments -------------
+    n_c = min(cfg["cpu"], n_h)
+    if device == "cuda":
+        cpu = SyncedSearcher(node.metadata, node.storage, node.searcher.cache_dir, device="cpu")
+        t = time.perf_counter()
+        cpu_out = [cpu.search(sid, r) for r in reqs[:n_c]]
+        t_cpu = time.perf_counter() - t
+        check(cpu.shard(sid).paragraph.engine.host_tier() is None, "the CPU searcher kept the host tier")
+        for i, (a, b) in enumerate(zip(device_out, cpu_out)):
+            node_same(a, b, NODE_CPU_RTOL, f"hybrid {i}: card vs CPU")
+        del cpu, cpu_out
+    else:
+        t_cpu = 0.0
+    os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+    del node_dev, shard_dev, device_out, t_out
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- filters and the other legs (default route) --------------------------
+    def legs(req):
+        return node_legs(node.search(sid, req))
+
+    restricted_r = next(r for r in range(1, R) if node_restricted(r) and r != NODE_HIDDEN)
+    target = restricted_r * P + 5  # a paragraph of a restricted resource
+    probe = dict(body=corpus.texts[target], vector=corpus.vecs_np[target], top_k=k, document=True)
+    from nucliadb_tpu_torch.shard import ShardSearchRequest
+
+    open_legs, closed_legs = legs(ShardSearchRequest(**probe, security_groups=["restricted"])), legs(
+        ShardSearchRequest(**probe, security_groups=[]))
+    check(open_legs["vector"][:1] == [restricted_r] and restricted_r in open_legs["paragraph"],
+          "security: the restricted resource is not found by its group")
+    check(not any(node_restricted(r) for leg in closed_legs.values() for r in leg), "security: a restricted resource passed")
+    label = node.search(sid, node_hybrid(corpus, 1, filter=LabelAtom("/l/tenth")))
+    check(label.vector and label.paragraph.hits, "label filter: an empty leg")
+    check(all("/l/tenth" in h.labels for h in label.vector), "label filter: an unlabelled vector")
+    check(all(corpus.pkey_row[h.paragraph_id] % 10 == 0 for h in label.paragraph.hits), "label filter: an unlabelled paragraph")
+    red = JsonPredicate(path="team", op="eq", value="red")
+    for op, ok in (("and", lambda r: not node_restricted(r) and r % 4 == 0),
+                   ("or", lambda r: not node_restricted(r) or r % 4 == 0)):
+        got = legs(node_hybrid(corpus, 2, security_groups=[], json_filter=red, filter_operator=op))
+        check(got["vector"] and got["paragraph"], f"json prefilter ({op}): an empty leg")
+        check(all(ok(r) for leg in got.values() for r in leg), f"json prefilter ({op}): a resource outside it passed")
+    own = dict(body=corpus.texts[12 * P + 1], vector=corpus.q_np[3], top_k=k, document=True)
+    got = legs(ShardSearchRequest(**own, key_filters=[node_rid(12) + "/"]))
+    check(got["vector"] and got["paragraph"], "key_filters: an empty leg")
+    check(all(r == 12 for leg in got.values() for r in leg), "key_filters: another resource passed")
+    got = legs(node_hybrid(corpus, 4, range_creation=(1000 + R // 2, None)))
+    check(got["vector"] and all(r >= R // 2 for leg in got.values() for r in leg), "range_creation: an older resource passed")
+    full = default_out[5]
+    v_floor, p_floor = full.vector[4].score, full.paragraph.hits[4].score
+    floored = node.search(sid, node_hybrid(corpus, 5, min_score_semantic=v_floor, min_score_bm25=p_floor))
+    check([h.key for h in floored.vector] == [h.key for h in full.vector if h.score >= np.float32(v_floor)],
+          "min_score_semantic: not the floored full result")
+    check(len(floored.paragraph.hits) >= 5 and all(h.score >= p_floor for h in floored.paragraph.hits),
+          "min_score_bm25: a hit under the floor")
+    graph = node.search(sid, ShardSearchRequest(body="", graph=GraphSearchRequest(source=NodePattern(value=node_rid(7)))))
+    check(len(graph.graph) == 3 and all(p.source.value == node_rid(7) for p in graph.graph), "graph request")
+    doc_body = " ".join(corpus.texts[6 * P + 2].split()[:3])  # words the corpus holds at any size
+    doc_req = ShardSearchRequest(body=doc_body, top_k=k, document=True, paragraph=False)
+    doc = node.search(sid, doc_req)
+    check(doc.paragraph is None and doc.vector == [] and doc.document.hits, "document request")
+    doc_oracle = oracles(shard)[1]
+    doc_ids = {key: i for i, key in enumerate(shard.text.engine.keys)}
+    from nucliadb_tpu_torch.index.text_engine.engine import TextQuery
+
+    kw_check_hits(doc_oracle, TextQuery(text=doc_req.body, top_k=k), [engine_hit(h, doc_ids[h.key]) for h in doc.document.hits],
+                  _no_count(), "document request")
+
+    # ---- deletion, then a delta ----------------------------------------------
+    gone = NODE_DELETED * P + 7
+    probe_gone = ShardSearchRequest(body=corpus.texts[gone], vector=corpus.vecs_np[gone], top_k=k, document=True,
+                                    graph=GraphSearchRequest(source=NodePattern(value=node_rid(NODE_DELETED))))
+    check(NODE_DELETED in legs(probe_gone)["vector"][:1], "the resource to delete is not found before")
+    node.delete_resource(sid, node_rid(NODE_DELETED))
+    t = time.perf_counter()
+    node.wait_for_sync()
+    sync()
+    t_sync_delete = time.perf_counter() - t
+    check(not any(NODE_DELETED in leg for leg in legs(probe_gone).values()), "a deleted resource came back")
+    before = node.searcher.shard(sid)
+    t = time.perf_counter()
+    for r in range(R, R + cfg["delta"]):
+        node.index(sid, corpus.resource(r))
+    t_delta_index = time.perf_counter() - t
+    t = time.perf_counter()
+    node.wait_for_sync()
+    sync()
+    t_sync_delta = time.perf_counter() - t
+    after = node.searcher.shard(sid)
+    extended = after.vectors["m"].index.vectors is before.vectors["m"].index.vectors
+    reused = after.paragraph.engine.reused_groups
+    check(extended, "the delta did not extend the vector arena in place")
+    check(reused >= 1, f"the delta reused {reused} paragraph groups")
+    new_row = R * P + 3
+    found = legs(ShardSearchRequest(body=corpus.texts[new_row], vector=corpus.vecs_np[new_row], top_k=k))
+    check(found["vector"][:1] == [R] and R in found["paragraph"], "a delta resource is not found")
+    fresh = SyncedSearcher(node.metadata, node.storage, node.searcher.cache_dir, device=device)
+    for i in range(16):
+        req = node_hybrid(corpus, i)
+        node_same(node.search(sid, req), fresh.search(sid, req), KW_RTOL, f"hybrid {i}: refreshed vs fresh searcher")
+    del fresh, before, after
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    print(
+        f"node requests: {n_h} hybrid requests (body + vector, top {k}, paragraph and document legs) on each keyword "
+        f"route: vector recall@10 >= {RECALL_BAR} against the exact f32 oracle, paragraph and document legs equal to "
+        f"the float64 BM25 oracle; counts default route {json.dumps(default_counts)}, device route "
+        f"{json.dumps(device_counts)}; device-route searcher open {t_open_dev:.1f}s; filters (label, security, json "
+        f"and/or, key_filters, range_creation, min_score on each leg), graph and document requests pass; "
+        f"{n_t} threaded requests from {cfg['threads']} threads, each equal to its solo answer: device route "
+        f"{t_burst['device']:.1f} ms ({coalesced['device']} vector dispatches), default route "
+        f"{t_burst['default']:.1f} ms ({coalesced['default']}); the {n_t} requests one after another: device "
+        f"route {t_seq['device']:.1f} ms, default route {t_seq['default']:.1f} ms (warm); card vs CPU on {n_c if device == 'cuda' else 0} requests equal within "
+        f"{NODE_CPU_RTOL} (CPU {t_cpu:.1f}s); deletion sync {t_sync_delete:.2f}s; delta of {cfg['delta']} resources "
+        f"indexed in {t_delta_index:.2f}s, synced in {t_sync_delta:.2f}s (arena extended in place, {reused} paragraph "
+        f"group(s) reused), equal to a fresh searcher",
+        flush=True,
+    )
+    timings = {key: round(v, 3) for key, v in timings.items()}
+    print(
+        f"node timings (host ms, median of 5; device busy ms per request from torch.profiler over 16 requests, idle "
+        f"share against the unprofiled median): {json.dumps(timings)}; threaded bursts (ms) {json.dumps(t_burst)}",
+        flush=True,
+    )
+    del node, shard
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return SimpleNamespace(default=default_counts, device=device_counts)
+
+
 def main() -> None:
     import torch
 
@@ -1349,6 +1883,8 @@ def main() -> None:
         corpus.free(torch)
     with tempfile.TemporaryDirectory() as tmp:
         phase_keyword(torch, tmp, KW_FULL)
+    with tempfile.TemporaryDirectory() as tmp:
+        node = phase_node(torch, tmp, NODE_FULL)
     print(
         "note: int8_scan_slots_resident has no serving route in either package; its kernel is the "
         "top-1 mode of int8_slot_scan.cu, so its launches are that mode's on the int8 + pallas path",
@@ -1372,7 +1908,10 @@ def main() -> None:
     ]
     rows = []
     for k, src, rep, n, err, k_ms, p_ms, (bound_ms, bound_by) in entries:
+        mode = {"int8_scan_slots_resident2": "top2", "binary_scan_slots": "binary"}.get(k, "top1")
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": n,
+               # launches on the node phase's counted path (both keyword routes)
+               "node_launches": node.default.get(mode, 0) + node.device.get(mode, 0),
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                # no single PyTorch call computes a slot table
                "library_ms": None, "share": bound_ms / k_ms}

@@ -16,13 +16,19 @@ its counterparts module by module, under the same names:
 - ``index/text_engine/``, ``index/paragraph/``, ``index/text/`` — the
   keyword leg: text segment files, ``DeviceTextEngine`` with its host WAND
   tier and coalescer, ``ParagraphSearcher`` and ``TextSearcher``.
+- ``shard/``, ``services/`` — the index node: ``ShardSearcher`` (the
+  prefilters and every leg of one shard request) and ``EmbeddedNode`` with
+  ``SyncedSearcher``, over copies of the JAX package's indexer, scheduler,
+  worker, JSON and relation indexes, storage, sqlite metadata, telemetry,
+  bus and audit modules.
 
 It imports ``torch``, never ``jax`` and nothing of the JAX package, not
 even its jax-free modules. The host modules it needs are copies kept
 verbatim: ``types.py``, ``query_language.py``, ``utils/keys.py``,
 ``utils/buckets.py`` and ``models/internal.py``, beside the copies of the
 vector and text segment modules, which read and write the same segment
-files. Being copies, their classes and enums are not the JAX package's: a
+files, and of the node's host modules, which read and write the same
+metadata and blobs. Being copies, their classes and enums are not the JAX package's: a
 ``LabelAtom`` or ``PrefilterResult`` of one package is not one of the
 other (``evaluate_bitset`` dispatches on ``isinstance``; ``IndexKind``,
 ``PrefilterKind`` and ``ResourceStatus`` compare by identity), so callers

@@ -1,11 +1,13 @@
-"""Vector index facade: VectorSearchRequest + VectorSearcher.
+"""Vector index facade: VectorIndexer, VectorSearchRequest, VectorSearcher.
 
-Counterpart of ``nucliadb_tpu/index/vector/__init__.py:121-230``, the
-searcher the shard searcher calls for the semantic leg. The compute runs
-through the port's device index (``device.py``) on an explicit ``device``:
-the exact tiers, int8 codes (with or without the ``pallas`` flag) and
-binary codes (with or without it). MULTI cardinality, the ``ivf``/``hnsw``
-flags and arena paging are not ported yet and raise ``NotImplementedError``.
+Counterpart of ``nucliadb_tpu/index/vector/__init__.py``: the indexer the
+shard indexer and the merge worker call, and the searcher the shard
+searcher calls for the semantic leg. The compute runs through the port's
+device index (``device.py``) on an explicit ``device``: the exact tiers,
+int8 codes (with or without the ``pallas`` flag) and binary codes (with or
+without it). MULTI cardinality, the ``ivf``/``hnsw`` flags and arena paging
+are not ported yet and raise ``NotImplementedError``: MULTI and the flags
+when a resource is indexed, paging when a searcher opens.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...models.internal import ResourceDoc
 from ...query_language import (
     BooleanExpression,
     FacetPrefixAtom,
@@ -23,11 +26,11 @@ from ...query_language import (
     LabelAtom,
     evaluate_bitset,
 )
-from ...types import OpenIndexMetadata, PrefilterResult, Seq, SimpleOpenIndex
+from ...types import OpenIndexMetadata, PrefilterResult, SegmentMetadata, Seq, SimpleOpenIndex
 
 from .config import Quantization, Similarity, VectorCardinality, VectorConfig
 from .device import DeviceVectorIndex, VectorHit
-from .segment import Elem, create_segment, open_segment
+from .segment import Elem, create_segment, merge_segments, open_segment
 
 # the jax-free request and index types the searcher's API takes are
 # re-exported, so a caller of the port needs no import of the JAX package
@@ -36,6 +39,7 @@ __all__ = [
     "Similarity",
     "VectorCardinality",
     "Quantization",
+    "VectorIndexer",
     "VectorSearcher",
     "VectorSearchRequest",
     "VectorHit",
@@ -49,8 +53,77 @@ __all__ = [
     "SimpleOpenIndex",
 ]
 
-# resources marked hidden get their segments tagged
+# resources marked hidden get their segments tagged (parity:
+# nidx_vector SEGMENT_TAGS / hidden-resource support, searcher.rs:206-219)
 TAG_HIDDEN = "hidden"
+
+
+class VectorIndexer:
+    """Builds vector segments from resources; merges segments."""
+
+    def __init__(self, config: VectorConfig):
+        if config.cardinality == VectorCardinality.MULTI:
+            raise NotImplementedError(
+                "MULTI cardinality (MaxSim) is not ported yet (ROADMAP.md, Queue 1 item 7)"
+            )
+        self.config = config
+
+    def resource_elems(self, resource: ResourceDoc, vectorset: str) -> list[Elem]:
+        elems: list[Elem] = []
+        for field_id, paragraphs in resource.paragraphs.items():
+            field_labels = resource.labels + (
+                resource.texts[field_id].labels if field_id in resource.texts else []
+            )
+            for pid, para in paragraphs.items():
+                sentences = para.vectorsets_sentences.get(vectorset, {})
+                if not sentences:
+                    continue
+                labels = field_labels + para.labels
+                meta = {
+                    "field": field_id,
+                    "split": para.split,
+                    "position": {
+                        "start": para.position.start if para.position else para.start,
+                        "end": para.position.end if para.position else para.end,
+                        "page_number": para.position.page_number if para.position else 0,
+                    },
+                }
+                for vkey, sentence in sentences.items():
+                    elems.append(
+                        Elem(
+                            key=vkey,
+                            vectors=np.asarray(sentence.vector, np.float32).reshape(1, -1),
+                            labels=labels,
+                            metadata=meta,
+                        )
+                    )
+        return elems
+
+    def index_resource(
+        self,
+        resource: ResourceDoc,
+        vectorset: str,
+        output_dir: str,
+        *,
+        hidden: bool = False,
+    ) -> Optional[SegmentMetadata]:
+        """Build one segment from one resource (None if nothing to index)."""
+        elems = self.resource_elems(resource, vectorset)
+        if not elems:
+            return None
+        tags = {TAG_HIDDEN} if hidden else set()
+        return create_segment(output_dir, elems, self.config, tags=tags)
+
+    def deletions_for_resource(self, resource: ResourceDoc, vectorset: str) -> list[str]:
+        """Key prefixes to delete when this resource (re)arrives: the
+        resource-wide prefixes plus the vectorset-scoped ones
+        (nidx_vector/src/lib.rs:88-94)."""
+        prefixes = list(resource.vectors_to_delete_in_all_vectorsets)
+        prefixes += resource.vector_prefixes_to_delete.get(vectorset, [])
+        return prefixes
+
+    def merge(self, open_index: OpenIndexMetadata, output_dir: str) -> SegmentMetadata:
+        return merge_segments(output_dir, open_index, self.config)
 
 
 @dataclass

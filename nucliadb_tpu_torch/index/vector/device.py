@@ -264,6 +264,13 @@ class DeviceVectorIndex:
             host_arena[: self.n_para] = flat
             self._host_arena = host_arena
 
+    def host_resident(self) -> bool:
+        """True when ``search`` serves from the host exact tier and so
+        launches nothing on the device: a host arena and no codes. (The
+        JAX package also rules out an IVF layout, a graph and paged arenas,
+        which this index refuses when it opens.)"""
+        return self._host_arena is not None and self.codes is None
+
     def _can_extend(self, prev: "DeviceVectorIndex | None", store_dtype) -> bool:
         """True when ``prev``'s arena is reusable as a prefix of this one:
         same device, shape, dtype and padding, identical leading segments,
@@ -344,7 +351,7 @@ class DeviceVectorIndex:
             full = np.zeros(self.p_pad, dtype=bool)
             full[: self.n_para] = para_mask
             para_mask = full
-        if self._host_arena is not None and self.codes is None:
+        if self.host_resident():
             mask_np = self.base_mask() if para_mask is None else self.base_mask() & para_mask
             return self._search_host_exact(
                 q, top_k, mask_np,

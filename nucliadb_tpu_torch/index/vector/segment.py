@@ -1,4 +1,4 @@
-"""Vector segment disk format: create / open, deletions.
+"""Vector segment disk format: create / open / merge, deletions.
 
 Counterpart of ``nucliadb_tpu/index/vector/segment.py`` (which imports jax
 through its package). It reads and writes the same immutable directory of
@@ -27,7 +27,7 @@ from typing import Iterable, Sequence
 import msgpack
 import numpy as np
 
-from ...types import SegmentMetadata, Seq
+from ...types import OpenIndexMetadata, SegmentMetadata, Seq
 from ...utils.keys import key_prefix_ranges  # noqa: F401  (re-exported)
 
 from .config import VectorConfig
@@ -180,3 +180,41 @@ def alive_mask(
     if applicable:
         mask &= ~segment.key_prefix_mask(applicable)
     return mask
+
+
+def merge_segments(
+    out_path: str,
+    open_index: OpenIndexMetadata,
+    config: VectorConfig,
+) -> SegmentMetadata:
+    """Merge operant segments into one, dropping deleted paragraphs
+    (``segment::merge``, nidx_vector/src/segment.rs:92-197): a filtered
+    concatenation plus a postings rebuild, as the JAX package does. Tags
+    are the union of the operants' tags. ``create_segment`` refuses the
+    ``hnsw``/``ivf`` flags here too."""
+    deletions = list(open_index.deletions())
+    elems: list[Elem] = []
+    tags: set[str] = set()
+    for seg_meta, seq in open_index.segments():
+        seg = open_segment(seg_meta.path)
+        tags |= set(seg.tags)
+        keep = alive_mask(seg, seq, deletions)
+        # paragraph labels: invert postings once for this segment
+        para_labels: list[list[str]] = [[] for _ in range(seg.n_paragraphs)]
+        for label, pids in seg.labels.items():
+            for pid in pids:
+                para_labels[pid].append(label)
+        # group vectors by paragraph (vec_para is sorted: keys are sorted and
+        # vectors were appended in key order)
+        first = np.searchsorted(seg.vec_para, np.arange(seg.n_paragraphs), side="left")
+        last = np.searchsorted(seg.vec_para, np.arange(seg.n_paragraphs), side="right")
+        for pid in np.nonzero(keep)[0]:
+            elems.append(
+                Elem(
+                    key=seg.keys[pid],
+                    vectors=np.asarray(seg.vectors[first[pid] : last[pid]]),
+                    labels=para_labels[pid],
+                    metadata=seg.para_meta[pid],
+                )
+            )
+    return create_segment(out_path, elems, config, tags=tags)

@@ -24,18 +24,18 @@ bit. ``LAUNCHES["binary"]`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 
 import torch
 
 from ..utils import kernels
+from ..utils.counts import LaunchCounter
 from . import quant, slot_scan
 from .slot_scan import NEG_INF
 
 BINARY_BLOCK_N = 8192  # the Pallas kernel's lanes per grid step (gate only)
 
 # kernel launches since the last reset (chip_smoke.py reads it)
-LAUNCHES: Counter = Counter()
+LAUNCHES = LaunchCounter()
 
 _KERNEL_BLOCK_B = 16  # queries per CUDA block (BQ in the source)
 _BLOCKS_PER_SM = 3  # resident blocks per SM under __launch_bounds__(256, 3)
@@ -174,7 +174,7 @@ def _launch_kernel(planes, qparams, codes_t, columns, mask, dim, slots):
         )
     if err != 0:
         raise RuntimeError(f"binary_slot_scan launch failed: CUDA error {err}")
-    LAUNCHES["binary"] += 1
+    LAUNCHES.add("binary")
     return out_s, out_i
 
 

@@ -39,10 +39,9 @@ Two things differ from the reference in how, not in what:
 
 from __future__ import annotations
 
-from collections import Counter
-
 import torch
 
+from ..utils.counts import LaunchCounter
 from .topk import NEG_INF, masked_topk
 
 K1 = 1.2
@@ -50,7 +49,7 @@ B = 0.75
 
 # device-program dispatches by entry point ("single", "batch"): shows
 # which route served a request (the host WAND tier dispatches nothing)
-DISPATCHES: Counter = Counter()
+DISPATCHES = LaunchCounter()
 
 
 def splice_1d(arr: torch.Tensor, delta: torch.Tensor, start: int) -> torch.Tensor:
@@ -189,7 +188,7 @@ def bm25_groups(groups, offsets, mask, all_rows, all_idfs, params, k, caps, tier
     """One query: ``mask`` [L] bool, ``all_rows``/``all_idfs`` [sum(caps)],
     ``params`` [3] (avgdl, required, min_score). Returns (top scores [k],
     [k ids | k counts] [2k], matched [L])."""
-    DISPATCHES["single"] += 1
+    DISPATCHES.add("single")
     top_s, top_ic, matched = _program(
         groups, offsets, mask, all_rows[None], all_idfs[None], params[None],
         k, caps, tier_counts, with_counts,
@@ -207,7 +206,7 @@ def bm25_groups_batch(
     scatter (AND semantics)."""
     if shared_mask != (masks.dim() == 1):
         raise ValueError(f"shared_mask={shared_mask} with masks of shape {tuple(masks.shape)}")
-    DISPATCHES["batch"] += 1
+    DISPATCHES.add("batch")
     top_s, top_ic, matched = _program(
         groups, offsets, masks, all_rows, all_idfs, params, k, caps, tier_counts, with_counts,
     )

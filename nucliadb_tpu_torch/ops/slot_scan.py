@@ -28,12 +28,12 @@ and ``"top2"``.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 
 import numpy as np
 import torch
 
 from ..utils import kernels
+from ..utils.counts import LaunchCounter
 from .quant import int8_dot
 
 # Pallas' NEG_INF (f32 min), NOT topk.NEG_INF (-3e38): the slot tables and
@@ -53,7 +53,7 @@ RESIDENT2_SLOTS = 256
 RESIDENT2_MAX_B = 2048
 
 # kernel launches since the last reset, by mode (chip_smoke.py reads them)
-LAUNCHES: Counter = Counter()
+LAUNCHES = LaunchCounter()
 
 _KERNEL_TILE_B = 128  # query rows per CTA (TILE_B in the source)
 _KERNEL_D_ALIGN = 64  # TMA rows are 16-byte multiples; the kernel zero-fills D to 128
@@ -329,7 +329,7 @@ def _launch_kernel(q_codes, codes, scale, mask, slots, keep):
             f"int8_slot_scan (keep={keep}) launch failed: error {err} "
             "(a CUDA error, or -2: the driver's tensor-map encoder is missing or refused a map)"
         )
-    LAUNCHES[f"top{keep}"] += 1
+    LAUNCHES.add(f"top{keep}")
     return out_s, out_i
 
 

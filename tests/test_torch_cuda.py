@@ -290,3 +290,49 @@ def test_cuda_keyword_engine_matches_cpu(tmp_path, monkeypatch, need_matched):
             assert m1.sum() == m2.sum() == mc.sum()
     single = gpu.search(queries[5])
     assert [h.doc_id for h in single[0]] == [h.doc_id for h in cpu.search(queries[5])[0]]
+
+
+def test_cuda_node_matches_cpu_node(tmp_path, monkeypatch):
+    """One data directory, two nodes: the card's answers equal the CPU's
+    (plain versions) up to ties, and every vector leg launches the top-2
+    kernel. 3,000 paragraphs take the int8 route once the threshold is
+    lowered (p_pad 4,096, the top-2 scan's gate)."""
+    _need_card()
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.index.vector import VectorConfig
+    from nucliadb_tpu_torch.models.internal import IndexParagraph, ResourceDoc, TextInformation, VectorSentence
+    from nucliadb_tpu_torch.services import EmbeddedNode
+    from nucliadb_tpu_torch.shard import ShardSearchRequest
+
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(5)
+    words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf", "hotel"]
+    vecs = rng.standard_normal((3000, 128)).astype(np.float32)
+    nodes = {d: EmbeddedNode(str(tmp_path / "node"), device=d) for d in ("cuda", "cpu")}
+    sid = nodes["cuda"].create_shard("kb", {"m": VectorConfig(dimension=128)}, shard_id="s")
+    for r in range(30):
+        texts = [" ".join(rng.choice(words, 6)) for _ in range(100)]
+        rd = ResourceDoc(resource_id=f"r{r:03d}")
+        rd.texts["t/t"] = TextInformation(text=" ".join(texts))
+        paras, start = {}, 0
+        for j, text in enumerate(texts):
+            end = start + len(text)
+            p = IndexParagraph(start=start, end=end)
+            p.vectorsets_sentences["m"] = {f"r{r:03d}/t/t/{j:03d}/{start}-{end}": VectorSentence(vector=vecs[r * 100 + j])}
+            paras[f"r{r:03d}/t/t/{start}-{end}"] = p
+            start = end + 1
+        rd.paragraphs["t/t"] = paras
+        nodes["cuda"].index(sid, rd)
+    nodes["cuda"].tick_background()
+    launches = slot_scan.LAUNCHES["top2"]
+    out = {d: [node.search(sid, ShardSearchRequest(body=" ".join(words[i % 8 : i % 8 + 2]), vector=vecs[i * 37],
+                                                   top_k=10, document=True)) for i in range(16)]
+           for d, node in nodes.items()}
+    assert slot_scan.LAUNCHES["top2"] >= launches + 16
+    assert nodes["cuda"].searcher.shard(sid).vectors["m"].index.codes is not None
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert [h.key for h in a.vector][:1] == [h.key for h in b.vector][:1]
+        np.testing.assert_allclose([h.score for h in a.vector], [h.score for h in b.vector], rtol=1e-4)
+        assert {h.key for h in a.vector} == {h.key for h in b.vector}
+        np.testing.assert_allclose([h.score for h in a.paragraph.hits], [h.score for h in b.paragraph.hits], rtol=1e-4)
+        assert a.paragraph.total == b.paragraph.total and a.document.total == b.document.total

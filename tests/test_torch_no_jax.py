@@ -1,5 +1,5 @@
 """The port never imports jax or the JAX package, and never moves a CUDA
-request to the CPU.
+request to the CPU: its vector and keyword legs and its index node.
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter.
@@ -80,6 +80,39 @@ _SCRIPT = textwrap.dedent(
         docs_resp = text.search(DocumentSearchRequest(query="charlie", top_k=3, order_by="created"))
     assert len(resp.hits) == len(default.hits) == 5, (resp, default)
     assert len(docs_resp.hits) == 3 and bm25.DISPATCHES["single"] >= 1, bm25.DISPATCHES
+
+    # the index node: index, merge, sync and a hybrid request
+    from nucliadb_tpu_torch.index.json import JsonPredicate
+    from nucliadb_tpu_torch.index.relation import GraphSearchRequest, NodePattern
+    from nucliadb_tpu_torch.models.internal import (
+        IndexParagraph, IndexRelation, RelationNode, ResourceDoc, TextInformation, VectorSentence,
+    )
+    from nucliadb_tpu_torch.services import EmbeddedNode
+    from nucliadb_tpu_torch.shard import ShardSearchRequest
+    from nucliadb_tpu_torch.storage import MemoryStorage
+
+    os.environ.pop("NDBTPU_TEXT_HOST_TIER")
+    with tempfile.TemporaryDirectory() as d:
+        node = EmbeddedNode(d, storage=MemoryStorage(), device="cpu")
+        sid = node.create_shard("kb", {"m": VectorConfig(dimension=16)})
+        for i in range(5):
+            text = " ".join(rng.choice(words, 5))
+            rd = ResourceDoc(resource_id=f"r{i}", created=i, modified=i, json_fields={"a/j": '{"n": %d}' % i})
+            rd.texts["t/t"] = TextInformation(text=text)
+            para = IndexParagraph(start=0, end=len(text))
+            para.vectorsets_sentences["m"] = {f"r{i}/t/t/0/0-{len(text)}": VectorSentence(vector=v[i, :16])}
+            rd.paragraphs["t/t"] = {f"r{i}/t/t/0-{len(text)}": para}
+            rd.relations["t/t"] = [IndexRelation(source=RelationNode(value=f"r{i}"), target=RelationNode(value="x"))]
+            node.index(sid, rd)
+        assert node.tick_background()["merged"] >= 4
+        node.wait_for_sync()
+        resp = node.search(sid, ShardSearchRequest(
+            body=text, vector=v[4, :16], top_k=3, document=True,
+            json_filter=JsonPredicate(path="n", op="gte", value=2),
+            graph=GraphSearchRequest(source=NodePattern(value="r4")),
+        ))
+    assert resp.vector[0].key.startswith("r4/") and resp.paragraph.hits and resp.document.hits, resp
+    assert len(resp.graph) == 1 and {h.rid for h in resp.paragraph.hits} <= {"r2", "r3", "r4"}, resp
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not loaded, loaded
     # the JAX package neither: nucliadb_tpu_torch* and nucliadb_tpu_native are allowed
@@ -109,7 +142,11 @@ _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(?:import|from)\s+nucliadb_tpu(?:\.|\s|,|
 def test_port_sources_name_no_jax_package_import():
     sources = sorted((Path(REPO) / "nucliadb_tpu_torch").rglob("*.py"))
     sources.append(Path(REPO) / "chip_smoke.py")
-    assert len(sources) > 20
+    names = {str(path.relative_to(REPO)) for path in sources}
+    assert len(sources) > 40 and {
+        "nucliadb_tpu_torch/services/binding.py", "nucliadb_tpu_torch/shard/searcher.py",
+        "nucliadb_tpu_torch/index/relation/__init__.py", "nucliadb_tpu_torch/telemetry/metrics.py",
+    } <= names
     offending = [
         f"{path.relative_to(REPO)}:{text[:m.start()].count(chr(10)) + 1}"
         for path in sources

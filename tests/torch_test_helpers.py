@@ -97,10 +97,13 @@ def assert_same_results(ref_s, ref_i, got_s, got_i):
 
 
 def as_port(obj):
-    """``obj`` with every instance of a class of the JAX package's host
-    modules (``types``, ``query_language``, ``models.internal``) rebuilt as
-    the port's copy of that class, field by field; containers are rebuilt,
-    other values kept.
+    """``obj`` with every instance of a class of the JAX package rebuilt as
+    the port's class of the same module path and name, field by field:
+    ``types``, ``query_language`` and ``models.internal`` (a ``ResourceDoc``
+    tree), the JSON expressions of ``index.json``, the graph requests of
+    ``index.relation``, ``shard.ShardSearchRequest`` (with its filters and
+    nested requests) and so on. Containers are rebuilt, other values
+    (numpy arrays among them) kept.
 
     The port keeps its own copies of those modules, so their classes and
     enums are distinct: ``evaluate_bitset`` dispatches on ``isinstance``
@@ -121,3 +124,85 @@ def as_port(obj):
     if isinstance(obj, (list, tuple, set, frozenset)):
         return cls(as_port(x) for x in obj)
     return obj
+
+
+def plain(obj):
+    """A structure of builtins that compares equal across the two packages:
+    a dataclass becomes (class name, {field: plain(value)}), an enum its
+    name, a numpy array its list, containers are rebuilt (sets as sorted
+    lists) and floats are kept, so ``assert_plain_close`` can hold them
+    within a tolerance."""
+    if isinstance(obj, enum.Enum):
+        return obj.name
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__qualname__, {f.name: plain(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {plain(k): plain(v) for k, v in obj.items()}
+    if isinstance(obj, (set, frozenset)):
+        return sorted(plain(x) for x in obj)
+    if isinstance(obj, (list, tuple)):
+        return [plain(x) for x in obj]
+    if isinstance(obj, np.ndarray):
+        return plain(obj.tolist())
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def assert_plain_close(got, want, rtol=RTOL, path="$"):
+    """``plain`` structures equal, floats within ``rtol``."""
+    if isinstance(want, float) and isinstance(got, (int, float)):
+        assert np.isclose(got, want, rtol=rtol, atol=1e-6), (path, got, want)
+        return
+    assert type(got) is type(want), (path, got, want)
+    if isinstance(want, dict):
+        assert set(got) == set(want), (path, sorted(got), sorted(want))
+        for k in want:
+            assert_plain_close(got[k], want[k], rtol, f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), (path, got, want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_plain_close(g, w, rtol, f"{path}[{i}]")
+    else:
+        assert got == want, (path, got, want)
+
+
+def assert_same_ranked(got, want, key, rtol=RTOL, what=""):
+    """Two ranked hit lists (``plain`` dicts with a "score"): equal length,
+    scores rank by rank within ``rtol``, and, inside each run of reference
+    scores within ``rtol`` of each other, the same hits as sets of
+    ``key(hit)`` (ties may order either way); every hit's other fields are
+    then compared through its key."""
+    assert len(got) == len(want), (what, [key(h) for h in got], [key(h) for h in want])
+    gs = np.array([h["score"] for h in got], np.float64)
+    ws = np.array([h["score"] for h in want], np.float64)
+    np.testing.assert_allclose(gs, ws, rtol=rtol, atol=1e-6, err_msg=what)
+    start = 0
+    for pos in range(1, len(want) + 1):
+        if pos == len(want) or not np.isclose(ws[pos], ws[pos - 1], rtol=rtol, atol=1e-6):
+            assert {key(h) for h in got[start:pos]} == {key(h) for h in want[start:pos]}, (what, start, pos)
+            start = pos
+    by_key = {key(h): h for h in got}
+    for h in want:
+        assert_plain_close(by_key[key(h)], h, rtol, f"{what}:{key(h)}")
+
+
+def assert_same_response(got, want):
+    """Two ``ShardSearchResponse``s, of either package: vector keys equal
+    and scores within RTOL, paragraph and document hits equal up to ties,
+    graph paths and the prefilter equal."""
+    g, w = plain(got)[1], plain(want)[1]
+    assert [h[1]["key"] for h in g["vector"]] == [h[1]["key"] for h in w["vector"]]
+    assert_plain_close(g["vector"], w["vector"])
+    for leg, key in (("paragraph", "paragraph_id"), ("document", "key")):
+        assert (g[leg] is None) == (w[leg] is None), leg
+        if w[leg] is None:
+            continue
+        gl, wl = g[leg][1], w[leg][1]
+        assert_same_ranked([h[1] for h in gl["hits"]], [h[1] for h in wl["hits"]], lambda h: h[key], what=leg)
+        rest = {k: v for k, v in wl.items() if k not in ("hits", "ematches")}
+        assert_plain_close({k: gl[k] for k in rest}, rest)
+        if "ematches" in wl:
+            assert sorted(gl["ematches"]) == sorted(wl["ematches"])
+    assert_plain_close(g["graph"], w["graph"])
+    assert g["prefilter"] == w["prefilter"]
