@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
     python3 chip_smoke.py
 
 It drives the port's vector-search paths, the semantic leg of /find, its
-keyword leg and the index node once at full size, in phases that each
-print one line:
+keyword leg, the index node and the product /find once at full size, in
+phases that each print one line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
@@ -99,10 +99,31 @@ print one line:
    request; a deletion, then a delta of 20 resources (the arena extended
    in place, the paragraph group reused, answers equal to a fresh
    searcher's).
+8. find: the product ``/find`` in process, ``SearchService`` over
+   ``KnowledgeBoxManager``, the ``Processor`` and the sqlite maindb, on an
+   ``EmbeddedNode(tmp, device="cuda")``: one knowledge box with vectorset
+   ``m`` (768-d, dot, int8) holding the node phase's 1,000 resources of 200
+   paragraphs, each written through ``Processor.create_resource`` as an
+   API payload (the paragraphs as one text field, an embedding per
+   paragraph, labels of two labelsets, an access group on two resources in
+   five); merge rounds, sync. Then, counted: 64 hybrid ``FindRequest``s
+   (query + vector, top-20, rank fusion "rrf") on the default keyword route
+   and again on the device route (``NDBTPU_TEXT_HOST_TIER=0`` before a
+   second node opens): the top-2 kernel must launch for every vector leg;
+   each paragraph leg equals the float64 BM25 oracle, the routes agree up
+   to ties, 16 fused orders equal a plain RRF recomputed from their shard
+   responses. Then 64 semantic-only requests (recall@10 >= 0.95 against the
+   exact f32 oracle); 16 label-filtered and 16 security requests per route
+   held to an oracle of the corpus's labels and groups (their paragraph
+   legs to the masked BM25 oracle, their vector legs to the masked exact
+   oracle); 16 requests through a ``SearchService`` over a node on the CPU
+   (the same maindb and segments, equal within 1e-4); the /find p50 and
+   p90 per route, the device's busy share, and 64 requests from 8 threads
+   (each its solo answer) against the same 64 one after another.
 
 It then prints the kernels' JSON line (each kernel's launches on its path
-and on the node phase's counted path, times, bound from this run's shapes
-and its share of it) and, last,
+and on the node and /find phases' counted paths, times, bound from this
+run's shapes and its share of it) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
 """
@@ -115,6 +136,7 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1814,6 +1836,398 @@ def phase_node(torch, tmp, cfg, device="cuda"):
     return SimpleNamespace(default=default_counts, device=device_counts)
 
 
+# ---------------------------------------------------------------------------
+# the product /find: SearchService over KnowledgeBoxManager, Processor, maindb
+# ---------------------------------------------------------------------------
+
+FIND_FULL = {
+    "resources": 1_000,
+    "paragraphs": 200,  # 200,000 paragraphs: the node phase's corpus generator and scale
+    "dim": DIM,
+    "requests": 64,  # hybrid FindRequests on each keyword route
+    "filtered": 16,  # with a label filter_expression, on each route
+    "secured": 16,  # with security groups, on each route
+    "cpu": 16,  # answered again by a SearchService over a node on the CPU
+    "fusion": 16,  # fused orders recomputed from their shard responses
+    "semantic": 64,  # semantic-only requests held to the exact f32 oracle
+    "threads": 8,
+}
+FIND_TOP_K = 20
+FIND_TOPICS = ("sports", "news", "science", "arts")  # labelset "topic": resource r has FIND_TOPICS[r % 4]
+FIND_LANGS = ("en", "es", "ca")  # labelset "lang": FIND_LANGS[r % 3]
+FIND_GROUPS = ("g1", "g2")  # access groups of resources r % 5 == 0 and r % 5 == 1; the rest are public
+
+
+def find_groups(r: int) -> list[str]:
+    return [FIND_GROUPS[r % 5]] if r % 5 < 2 else []
+
+
+def find_payload(corpus, r: int, rows: dict):
+    """Resource r as the API's CreateResourcePayload: its paragraphs joined
+    by blank lines into one text field, one 768-d embedding per paragraph
+    (vectorset "m"), a title, two labels and, on two resources in five, an
+    access group. ``rows`` maps each paragraph's block id to its corpus row."""
+    from nucliadb_tpu_torch.models.api import (
+        Classification, CreateResourcePayload, ResourceSecurity, SentenceEmbedding, TextFieldPayload, UserMetadata,
+    )
+
+    P, rid = corpus.P, node_rid(r)
+    parts = corpus.texts[r * P : (r + 1) * P]
+    embeddings, start = [], 0
+    for j, text in enumerate(parts):
+        end = start + len(text)
+        embeddings.append(SentenceEmbedding(start=start, end=end, vector=corpus.vecs_np[r * P + j].tolist()))
+        rows[f"{rid}/t/body/{start}-{end}"] = r * P + j
+        start = end + 2
+    groups = find_groups(r)
+    return CreateResourcePayload(
+        title=" ".join(corpus.titles[r].split()[:6]),
+        texts={"body": TextFieldPayload(body="\n\n".join(parts))},
+        usermetadata=UserMetadata(classifications=[
+            Classification(labelset="topic", label=FIND_TOPICS[r % 4]),
+            Classification(labelset="lang", label=FIND_LANGS[r % 3]),
+        ]),
+        security=ResourceSecurity(access_groups=groups) if groups else None,
+        embeddings={"m": {"body": embeddings}},
+    )
+
+
+def find_request(corpus, i: int, **kw):
+    from nucliadb_tpu_torch.models.api import FindRequest
+
+    return FindRequest(**{"query": corpus.bodies[i], "vector": corpus.q_np[i].tolist(), "top_k": FIND_TOP_K, **kw})
+
+
+def find_capture(node) -> list:
+    """Keeps the shard responses of every ``search_multi`` call that
+    ``SearchService`` makes on ``node`` (one per /find)."""
+    seen, real = [], node.search_multi
+
+    def search_multi(shard_ids, request):
+        out = real(shard_ids, request)
+        seen.append(out)
+        return out
+
+    node.search_multi = search_multi
+    return seen
+
+
+def find_scores(res) -> dict:
+    """Block id -> fused score of every paragraph a FindResults holds."""
+    return {pid: p.score for r in res.resources.values() for f in r.fields.values() for pid, p in f.paragraphs.items()}
+
+
+def find_plain_rrf(resp, top_k: int) -> list:
+    """Reciprocal rank fusion recomputed from one shard response: each leg
+    ranked by score (stable), 1 / (60 + rank) summed per block, ordered by
+    (-fused, block id), cut at top_k."""
+    keyword = sorted(((h.paragraph_id, h.score) for h in resp.paragraph.hits), key=lambda x: -x[1])
+    semantic = []
+    for h in resp.vector:  # "{rid}/{field}/{index}/{start}-{end}" -> "{rid}/{field}/{start}-{end}"
+        parts = h.key.split("/")
+        semantic.append(("/".join(parts[:-2] + parts[-1:]), h.score))
+    semantic.sort(key=lambda x: -x[1])
+    fused = {}
+    for blocks in (keyword, semantic):
+        for rank, (block, _) in enumerate(blocks):
+            fused[block] = fused.get(block, 0.0) + 1.0 / (60 + rank)
+    return sorted(fused.items(), key=lambda x: (-x[1], x[0]))[:top_k]
+
+
+def find_check_fusion(res, resp, what):
+    want = find_plain_rrf(resp, FIND_TOP_K)
+    check(res.best_matches == [b for b, _ in want], f"{what}: the fused order is not the plain RRF's")
+    scores = find_scores(res)
+    check(all(scores[b] == f for b, f in want), f"{what}: a fused score is not the plain RRF's")
+
+
+def find_tied(*responses, rtol=KW_RTOL) -> set:
+    """Blocks whose score on a leg lies within ``rtol`` of another block's
+    in these responses: two routes (or two batch sizes of the rerank) may
+    rank such ties either way."""
+    tied = set()
+    for leg in ([(h.paragraph_id, h.score) for r in responses for h in r.paragraph.hits],
+                [("/".join(h.key.split("/")[:-2] + h.key.split("/")[-1:]), h.score) for r in responses for h in r.vector]):
+        hits = sorted(set(leg), key=lambda x: x[1])
+        for (a, sa), (b, sb) in zip(hits, hits[1:]):
+            if a != b and abs(sa - sb) <= rtol * abs(sb) + 1e-6:
+                tied |= {a, b}
+    return tied
+
+
+def find_same(a, b, tied, rtol, what):
+    """Two FindResults equal up to ties: the same length, and at each rank
+    the same block (with its fused score within ``rtol``) or two blocks of
+    ``tied``."""
+    check(len(a.best_matches) == len(b.best_matches), f"{what}: {len(a.best_matches)} vs {len(b.best_matches)} matches")
+    sa, sb = find_scores(a), find_scores(b)
+    for x, y in zip(a.best_matches, b.best_matches):
+        if x == y:
+            check(abs(sa[x] - sb[y]) <= rtol * abs(sb[y]) + 1e-9, f"{what}: {x} scores differ")
+        else:
+            check(x in tied and y in tied, f"{what}: {x} vs {y}")
+
+
+def find_results_ok(res, what):
+    scores = [find_scores(res)[b] for b in res.best_matches]
+    check(len(res.best_matches) == FIND_TOP_K and res.resources, f"{what}: {len(res.best_matches)} matches")
+    check(bool(np.isfinite(scores).all()) and all(x >= y for x, y in zip(scores, scores[1:])), f"{what}: fused scores")
+    check(all(r.title and r.fields for r in res.resources.values()), f"{what}: a resource was not hydrated")
+
+
+def phase_find(torch, tmp, cfg, device="cuda"):
+    """The product /find in process (see the module docstring); prints one
+    line per part and returns the launch and dispatch counts of its counted
+    main path (the hybrid requests on both keyword routes)."""
+    import os
+    import threading
+
+    from nucliadb_tpu_torch.common.kb import KnowledgeBoxManager
+    from nucliadb_tpu_torch.index.text_engine.engine import TextQuery
+    from nucliadb_tpu_torch.ingest import Processor
+    from nucliadb_tpu_torch.maindb import Driver
+    from nucliadb_tpu_torch.models.api import FilterExpression, KnowledgeBoxConfig, SearchFeature, VectorSetSpec
+    from nucliadb_tpu_torch.ops import binary_scan, bm25, slot_scan
+    from nucliadb_tpu_torch.search import SearchService
+    from nucliadb_tpu_torch.services import EmbeddedNode
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    n_req = cfg["requests"]
+    corpus = NodeCorpus(torch, dict(cfg, delta=0, hybrid=max(n_req, cfg["semantic"]), threaded=0, cpu=0), device)
+    R, P = corpus.R, corpus.P
+
+    def stack(node):
+        kbs = KnowledgeBoxManager(driver, node)
+        processor = Processor(driver, node, kbs)
+        return SimpleNamespace(node=node, kbs=kbs, processor=processor, search=SearchService(node, kbs, processor))
+
+    # ---- build: the Processor writes maindb and indexes; merge; sync ---------
+    driver = Driver(f"{tmp}/find_kv.db")
+    node_dir = f"{tmp}/find_node"
+    app = stack(EmbeddedNode(node_dir, device=device))
+    kbid = app.kbs.create(KnowledgeBoxConfig(slug="find", vectorsets={"m": VectorSetSpec(dimension=cfg["dim"])}))
+    (sid,) = app.kbs.get_shards(kbid).shards
+    app.node.configure_shards([{"shard_id": sid, "prewarm_enabled": True}])  # sync opens the searcher
+    rows: dict = {}
+    t = time.perf_counter()
+    for r in range(R):
+        app.processor.create_resource(kbid, find_payload(corpus, r, rows), rid=node_rid(r), created=1000.0 + r)
+    t_ingest = time.perf_counter() - t
+    t, rounds = time.perf_counter(), 0
+    while True:
+        stats = app.node.tick_background()
+        rounds += 1
+        if stats["jobs_enqueued"] == 0 and stats["merged"] == 0:
+            break
+    t_merge = time.perf_counter() - t
+    t = time.perf_counter()
+    check(app.node.wait_for_sync() == [sid], "sync did not open the shard")
+    sync()
+    t_sync = time.perf_counter() - t
+    shard = app.node.searcher.shard(sid)
+    vindex = shard.vectors["m"].index
+    check(vindex.n_para == R * P and vindex.codes is not None and not vindex.host_resident(),
+          "the vector leg is not on the int8 route over every paragraph")
+    kb_bytes = os.path.getsize(f"{tmp}/find_kv.db")
+    print(
+        f"find build: {R} resources x {P} paragraphs ({R * P}, dim {cfg['dim']}) through the Processor on {device}: "
+        f"{t_ingest:.1f}s ({R / t_ingest:.1f} resources/s, maindb {kb_bytes / 2**20:.0f} MiB); {rounds} background "
+        f"rounds, merges {t_merge:.1f}s; sync {t_sync:.1f}s (p_pad {vindex.p_pad}); host WAND tier "
+        f"{'on' if shard.paragraph.engine.host_tier() else 'off'}",
+        flush=True,
+    )
+
+    reqs = [find_request(corpus, i) for i in range(n_req)]
+    para_oracles = {}
+
+    def check_paragraph_leg(shard_x, req, resp, what, mask=None):
+        engine = shard_x.paragraph.engine
+        oracle = para_oracles.setdefault(id(engine), KwOracle(engine))
+        q = TextQuery(text=req.query, top_k=max(2 * FIND_TOP_K, 20), fuzzy=True)
+        kw_check_hits(oracle, q, resp.paragraph.hits, _no_count(), f"{what}, paragraph leg", mask)
+
+    def timed(search_x, requests):
+        out, ms = [], []
+        for req in requests:
+            t = time.perf_counter()
+            out.append(search_x.find(kbid, req))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, ms
+
+    # ---- the main path, counted: hybrid /find on both keyword routes ---------
+    seen = find_capture(app.node)
+    os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+    reset_launches(slot_scan, binary_scan)
+    bm25.DISPATCHES.clear()
+    default_out, default_ms = timed(app.search, reqs)
+    default_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+    default_resp = [r[0] for r in seen]
+    os.environ["NDBTPU_TEXT_HOST_TIER"] = "0"  # set before the device-route node's searcher opens
+    dev = stack(EmbeddedNode(node_dir, device=device))  # a second node over the same data directory
+    shard_dev = dev.node.searcher.shard(sid)
+    sync()
+    seen_dev = find_capture(dev.node)
+    reset_launches(slot_scan, binary_scan)
+    bm25.DISPATCHES.clear()
+    device_out, device_ms = timed(dev.search, reqs)
+    device_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+    device_resp = [r[0] for r in seen_dev]
+    # ---------------------------------------------------------------------------
+    check(len(default_resp) == len(device_resp) == n_req, "a /find did not make exactly one shard fan-out")
+    if device == "cuda":  # on the CPU the wrappers take their plain versions, which count nothing
+        check(default_counts.get("top2", 0) >= n_req, f"default route: the top-2 kernel launched {default_counts}")
+        check(device_counts.get("top2", 0) >= n_req, f"device route: the top-2 kernel launched {device_counts}")
+    check(device_counts.get("single", 0) + device_counts.get("batch", 0) >= n_req,
+          f"device route: the BM25 program dispatched {device_counts}")
+    check(shard_dev.paragraph.engine.host_tier() is None, "the device-route searcher kept the host tier")
+    if shard.paragraph.engine.host_tier() is not None:
+        check(default_counts.get("single", 0) + default_counts.get("batch", 0) == 0,
+              f"default route: the host tier dispatched {default_counts}")
+    check(all(default_counts.get(m, 0) == 0 and device_counts.get(m, 0) == 0 for m in ("top1", "binary")),
+          "/find launched a kernel of another route")
+    for name, shard_x, out, resp in (("default route", shard, default_out, default_resp),
+                                     ("device route", shard_dev, device_out, device_resp)):
+        for i, (req, res, r) in enumerate(zip(reqs, out, resp)):
+            find_results_ok(res, f"{name}, find {i}")
+            check(len(r.vector) == 2 * FIND_TOP_K, f"{name}, find {i}: the vector leg returned {len(r.vector)}")
+            check_paragraph_leg(shard_x, req, r, f"{name}, find {i}")
+    for i in range(n_req):
+        find_same(default_out[i], device_out[i], find_tied(default_resp[i], device_resp[i]), KW_RTOL,
+                  f"find {i}: default vs device route")
+    for i in range(cfg["fusion"]):
+        find_check_fusion(default_out[i], default_resp[i], f"find {i}, default route")
+        find_check_fusion(device_out[i], device_resp[i], f"find {i}, device route")
+
+    # ---- semantic-only requests against the exact f32 oracle -----------------
+    n_sem = cfg["semantic"]
+    q_dev = torch.from_numpy(corpus.q_np[:n_sem]).to(corpus.vecs.device)
+    everything = torch.ones(R * P, dtype=torch.bool, device=corpus.vecs.device)
+    oracle = exact_oracle(torch, corpus.vecs, everything, q_dev, TOP_K)
+    sem_out = [app.search.find(kbid, find_request(corpus, i, query="", features=[SearchFeature.SEMANTIC]))
+               for i in range(n_sem)]
+    recall = float(np.mean([
+        len({rows[b] for b in res.best_matches[:TOP_K]} & set(oracle[i].tolist())) / TOP_K
+        for i, res in enumerate(sem_out)
+    ]))
+    check(recall >= RECALL_BAR, f"semantic /find recall@10 {recall} < {RECALL_BAR}")
+
+    # ---- filters: a label filter_expression and security groups --------------
+    rid_of_doc = {id(s): np.array([node_resource_of(k) for k in s.paragraph.engine.keys]) for s in (shard, shard_dev)}
+    resources = np.arange(R)
+    filtered = []
+    for i in range(cfg["filtered"]):
+        topic = FIND_TOPICS[i % 4]
+        filtered.append((f"label /l/topic/{topic}", resources % 4 == i % 4,
+                         find_request(corpus, i, filter_expression=FilterExpression(literal=f"/l/topic/{topic}"))))
+    for i in range(cfg["secured"]):
+        group = FIND_GROUPS[i % 2]
+        allowed = np.array([not find_groups(r) or group in find_groups(r) for r in range(R)])
+        filtered.append((f"security {group}", allowed, find_request(corpus, n_req - 1 - i, security_groups=[group])))
+    filt_recall = []
+    for name, search_x, shard_x, seen_x in (("default route", app.search, shard, seen),
+                                            ("device route", dev.search, shard_dev, seen_dev)):
+        for what, allowed, req in filtered:
+            seen_x.clear()
+            res = search_x.find(kbid, req)
+            (resp,) = seen_x[0]
+            what = f"{name}, {what}"
+            find_results_ok(res, what)
+            check(all(allowed[node_resource_of(rid)] for rid in res.resources), f"{what}: a resource outside the filter")
+            check(all(allowed[node_resource_of(h.key)] for h in resp.vector)
+                  and all(allowed[node_resource_of(h.paragraph_id)] for h in resp.paragraph.hits),
+                  f"{what}: a hit outside the filter")
+            engine = shard_x.paragraph.engine
+            mask = engine.build_mask(TextQuery(text=req.query))[: engine.n_docs] & allowed[rid_of_doc[id(shard_x)]]
+            check_paragraph_leg(shard_x, req, resp, what, mask)
+            find_check_fusion(res, resp, what)
+            alive = torch.from_numpy(np.repeat(allowed, P)).to(corpus.vecs.device)
+            q = torch.from_numpy(np.asarray([req.vector], np.float32)).to(corpus.vecs.device)
+            want = set(exact_oracle(torch, corpus.vecs, alive, q, TOP_K)[0].tolist())
+            got = {rows["/".join(h.key.split("/")[:-2] + h.key.split("/")[-1:])] for h in resp.vector[:TOP_K]}
+            filt_recall.append(len(got & want) / TOP_K)
+    check(float(np.mean(filt_recall)) >= RECALL_BAR, f"filtered vector legs: recall@10 {np.mean(filt_recall)}")
+
+    # ---- the card against the CPU, over the same maindb and segments ---------
+    n_c = cfg["cpu"] if device == "cuda" else 0
+    if n_c:
+        cpu = stack(EmbeddedNode(node_dir, device="cpu"))  # NDBTPU_TEXT_HOST_TIER=0: the device route's program
+        seen_cpu = find_capture(cpu.node)
+        t = time.perf_counter()
+        cpu_out = [cpu.search.find(kbid, r) for r in reqs[:n_c]]
+        t_cpu = time.perf_counter() - t
+        check(cpu.node.searcher.shard(sid).paragraph.engine.host_tier() is None, "the CPU searcher kept the host tier")
+        for i, (a, b) in enumerate(zip(device_out, cpu_out)):
+            tied = find_tied(device_resp[i], seen_cpu[i][0], rtol=NODE_CPU_RTOL)
+            find_same(a, b, tied, NODE_CPU_RTOL, f"find {i}: card vs CPU")
+        del cpu, cpu_out, seen_cpu
+    else:
+        t_cpu = 0.0
+    os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+
+    # ---- timings, and threads: 8 threads against one after another -----------
+    timings = {}
+    for name, ms in (("default", default_ms), ("device", device_ms)):
+        timings[f"find_p50_{name}"] = float(np.percentile(ms, 50))
+        timings[f"find_p90_{name}"] = float(np.percentile(ms, 90))
+    phases = {}  # SearchService's own per-phase seconds (debug=True), median of 16 requests, in ms
+    for name, app_x in (("default", app), ("device", dev)):
+        split = [app_x.search.find(kbid, find_request(corpus, i, debug=True)).timings for i in range(min(16, n_req))]
+        phases[name] = {k: round(float(np.median([t[k] for t in split])) * 1e3, 3) for k in split[0]}
+    if device == "cuda":
+        for name, app_x in (("default", app), ("device", dev)):
+            busy = device_busy_ms(torch, lambda: [app_x.search.find(kbid, r) for r in reqs[:16]]) / 16
+            timings[f"device_busy_per_find_{name}"] = busy
+            timings[f"device_idle_share_{name}"] = 1.0 - busy / timings[f"find_p50_{name}"]
+    t_burst, t_seq = {}, {}
+    for name, app_x, solo, resp in (("device", dev, device_out, device_resp), ("default", app, default_out, default_resp)):
+        t = time.perf_counter()
+        for r in reqs:  # the same requests one after another, warm
+            app_x.search.find(kbid, r)
+        t_seq[name] = (time.perf_counter() - t) * 1e3
+        t_out, errors = [None] * n_req, []
+
+        def worker(ix):
+            try:
+                for i in ix:
+                    t_out[i] = app_x.search.find(kbid, reqs[i])
+            except BaseException as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(range(w, n_req, cfg["threads"]),)) for w in range(cfg["threads"])]
+        t = time.perf_counter()
+        [th.start() for th in threads]
+        [th.join(timeout=600) for th in threads]
+        t_burst[name] = (time.perf_counter() - t) * 1e3
+        check(not errors and all(x is not None for x in t_out), f"{name} route: threaded /find failed: {errors[:1]}")
+        for i, res in enumerate(t_out):
+            find_same(res, solo[i], find_tied(resp[i]), KW_RTOL, f"{name} route: threaded find {i} vs its solo answer")
+    timings = {key: round(v, 3) for key, v in timings.items()}
+    print(
+        f"find requests: {n_req} hybrid /find (query + vector, top {FIND_TOP_K}, rrf) on each keyword route, every "
+        f"answer hydrated from maindb, its paragraph leg equal to the float64 BM25 oracle, the routes equal up to ties; "
+        f"counts default route {json.dumps(default_counts)}, device route {json.dumps(device_counts)}; {cfg['fusion']} "
+        f"fused orders equal a plain RRF of their shard responses; semantic-only recall@10 {recall:.4f} over {n_sem}; "
+        f"{cfg['filtered']} label-filtered and {cfg['secured']} security requests per route inside their filters, "
+        f"paragraph legs equal to the masked oracle, vector legs recall@10 {np.mean(filt_recall):.4f} against the "
+        f"masked exact oracle; card vs CPU on {n_c} requests equal within {NODE_CPU_RTOL} (CPU {t_cpu:.1f}s); "
+        f"{n_req} requests from {cfg['threads']} threads equal their solo answers on both routes",
+        flush=True,
+    )
+    print(
+        f"find timings (host ms per /find over the counted pass of {n_req}; device busy ms per /find from "
+        f"torch.profiler over 16, idle share against the p50): {json.dumps(timings)}; phases (ms, median of 16) "
+        f"{json.dumps(phases)}; {n_req} requests one after "
+        f"another (ms) {json.dumps({k: round(v, 1) for k, v in t_seq.items()})}, from {cfg['threads']} threads (ms) "
+        f"{json.dumps({k: round(v, 1) for k, v in t_burst.items()})}; phase {time.perf_counter() - t_phase:.1f}s",
+        flush=True,
+    )
+    del app, dev, shard, shard_dev, corpus
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return SimpleNamespace(default=default_counts, device=device_counts)
+
+
 def main() -> None:
     import torch
 
@@ -1885,6 +2299,8 @@ def main() -> None:
         phase_keyword(torch, tmp, KW_FULL)
     with tempfile.TemporaryDirectory() as tmp:
         node = phase_node(torch, tmp, NODE_FULL)
+    with tempfile.TemporaryDirectory() as tmp:
+        find = phase_find(torch, tmp, FIND_FULL)
     print(
         "note: int8_scan_slots_resident has no serving route in either package; its kernel is the "
         "top-1 mode of int8_slot_scan.cu, so its launches are that mode's on the int8 + pallas path",
@@ -1910,8 +2326,10 @@ def main() -> None:
     for k, src, rep, n, err, k_ms, p_ms, (bound_ms, bound_by) in entries:
         mode = {"int8_scan_slots_resident2": "top2", "binary_scan_slots": "binary"}.get(k, "top1")
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": n,
-               # launches on the node phase's counted path (both keyword routes)
+               # launches on the node phase's and the /find phase's counted
+               # paths (both keyword routes each)
                "node_launches": node.default.get(mode, 0) + node.device.get(mode, 0),
+               "find_launches": find.default.get(mode, 0) + find.device.get(mode, 0),
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                # no single PyTorch call computes a slot table
                "library_ms": None, "share": bound_ms / k_ms}

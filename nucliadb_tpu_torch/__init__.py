@@ -3,8 +3,9 @@
 The JAX package (``nucliadb_tpu``) stays the reference. This package holds
 its counterparts module by module, under the same names:
 
-- ``utils/platform.py`` — precision policy (no TF32), explicit devices and
-  ``device_fetch``;
+- ``utils/platform.py`` — precision policy (no TF32), explicit devices, a
+  CUDA stream per dispatching thread and ``device_fetch``, which waits for
+  that stream only;
 - ``utils/kernels.py``  — builds the hand-written CUDA kernels in ``csrc/``
   with ``nvcc`` at first use and loads them with ``ctypes``;
 - ``ops/``              — top-k, exact distances, int8 and binary codes,
@@ -21,6 +22,11 @@ its counterparts module by module, under the same names:
   ``SyncedSearcher``, over copies of the JAX package's indexer, scheduler,
   worker, JSON and relation indexes, storage, sqlite metadata, telemetry,
   bus and audit modules.
+- ``search/``, ``common/kb.py``, ``ingest/``, ``maindb/``, ``models/api.py``
+  — the product layer in process: ``SearchService`` (find, retrieve,
+  suggest, catalog, graph, ask), ``KnowledgeBoxManager`` and the
+  ``Processor`` over the sqlite key-value store, copies of the JAX
+  package's, on top of the ported ``EmbeddedNode``.
 
 It imports ``torch``, never ``jax`` and nothing of the JAX package, not
 even its jax-free modules. The host modules it needs are copies kept

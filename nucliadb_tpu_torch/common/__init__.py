@@ -1,3 +1,5 @@
-"""Cross-cutting components. The port holds ``audit.py`` only, a copy of
-``nucliadb_tpu/common/audit.py`` (the scheduler's storage audit reaches it).
+"""Cross-cutting product components: KB/cluster management, locking, the
+KB vocabulary services, the external-index hook and audit. The modules are
+copies of the JAX package's ``nucliadb_tpu/common/`` modules of the same
+names.
 """

@@ -57,7 +57,7 @@ from ...utils.buckets import bucket as _bucket  # shared {2^k, 1.5*2^k} ladder
 from ...ops import bm25
 from ...ops.bm25 import B, K1
 from ...ops.topk import NEG_INF
-from ...utils.platform import device_fetch, resolve_device
+from ...utils.platform import device_fetch, resolve_device, stream_wait, thread_stream
 from .builder import TextSegmentData, alive_mask_text
 from .fuzzy import FuzzyIndex
 from .tokenizer import tokenize
@@ -495,6 +495,7 @@ class DeviceTextEngine:
         self.device = resolve_device(device)
         if prev is not None and prev.device != self.device:
             raise ValueError(f"prev engine is on {prev.device}, this one on {self.device}")
+        thread_stream(self.device)
         self._seg_sig = tuple(
             (s.path, int(seq), s.n_docs) for s, seq in segments
         )
@@ -505,6 +506,9 @@ class DeviceTextEngine:
             dict(prev._host_postings_cache) if prev is not None else {}
         )
         self._assemble(segments, deletions, prev)
+        # searches on other threads' streams read the uploaded groups and
+        # the spliced mask once this engine is published
+        stream_wait(self.device)
 
     # ------------------------------------------------------------------
     # build
@@ -703,7 +707,9 @@ class DeviceTextEngine:
 
     def base_mask_device(self) -> torch.Tensor:
         if self._base_mask_dev is None:
-            self._base_mask_dev = _dput(self.base_mask(), self.device)
+            mask = _dput(self.base_mask(), self.device)
+            stream_wait(self.device)  # other threads' streams read the cache
+            self._base_mask_dev = mask
         return self._base_mask_dev
 
     def idf(self, df: int) -> float:
@@ -1110,6 +1116,7 @@ class DeviceTextEngine:
             terms, required, query
         )
         dev = self.device
+        thread_stream(dev)
         all_rows = torch.from_numpy(rows_np).to(dev)
         all_idfs = torch.from_numpy(idfs_np).to(dev)
         params = torch.from_numpy(params_np).to(dev)
@@ -1235,6 +1242,7 @@ class DeviceTextEngine:
         )
         k, caps, rows, idfs, params = self.plan_batch(queries)
         dev = self.device
+        thread_stream(dev)
         if unfiltered:
             masks_in = self.base_mask_device()
         else:

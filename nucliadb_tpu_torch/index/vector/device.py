@@ -50,7 +50,7 @@ from ...utils.buckets import bucket
 from ...ops import binary_scan, quant, slot_scan
 from ...ops.distance import prepare_query, rerank_scores, scores_matmul
 from ...ops.topk import NEG_INF, masked_topk
-from ...utils.platform import device_fetch, resolve_device
+from ...utils.platform import device_fetch, resolve_device, stream_wait, thread_stream
 from .config import EXACT_SCAN_THRESHOLD, Quantization, VectorCardinality, VectorConfig
 from .segment import LoadedSegment, alive_mask, key_prefix_ranges
 
@@ -98,6 +98,7 @@ class DeviceVectorIndex:
     ):
         _check_ported(config)
         self.device = resolve_device(device)
+        thread_stream(self.device)
         self.config = config
         dim = config.dimension
 
@@ -188,6 +189,9 @@ class DeviceVectorIndex:
             # as the JAX package does, re-encode the whole arena (a delta is
             # already written into it above)
             self.codes = quant.BinaryCodes.encode(self.vectors)
+        # searches on other threads' streams read the arena (the in-place
+        # delta included) once this index is published
+        stream_wait(self.device)
 
     @classmethod
     def from_reference_state(
@@ -215,6 +219,7 @@ class DeviceVectorIndex:
         _check_ported(config)
         self = cls.__new__(cls)
         self.device = resolve_device(device)
+        thread_stream(self.device)
         self.config = config
         self.keys = list(keys)
         self.para_meta = list(para_meta)
@@ -251,6 +256,7 @@ class DeviceVectorIndex:
                 scale=f32("bin_scale"), resid=f32("resid"), popcnt=f32("popcnt"),
                 dim=config.dimension,
             )
+        stream_wait(self.device)
         return self
 
     def _set_host_arena(self, flat: np.ndarray) -> None:
@@ -301,7 +307,9 @@ class DeviceVectorIndex:
 
     def base_mask_device(self) -> torch.Tensor:
         if self._base_mask_dev is None:
-            self._base_mask_dev = torch.from_numpy(self.base_mask()).to(self.device)
+            mask = torch.from_numpy(self.base_mask()).to(self.device)
+            stream_wait(self.device)  # other threads' streams read the cache
+            self._base_mask_dev = mask
         return self._base_mask_dev
 
     def label_postings(self, label: str) -> np.ndarray:
@@ -358,6 +366,7 @@ class DeviceVectorIndex:
                 float(NEG_INF) if min_score is None else float(min_score),
                 dedup,
             )
+        thread_stream(self.device)
         if para_mask is None:
             mask_t = self.base_mask_device()
         else:

@@ -16,10 +16,10 @@ Parity with the reference's query planner and shard executor
 3. the index searches execute and assemble one ShardSearchResponse.
 
 A hybrid request runs its paragraph leg on ``_INDEX_POOL`` while the vector
-leg runs on the calling thread, as in the JAX package. On the card both
-legs end in ``device_fetch``, which synchronises the device, so one leg's
-fetch also waits for the other's kernels: correct, but the two legs
-overlap only in their host work.
+leg runs on the calling thread, as in the JAX package. On the card each
+thread launches on a stream of its own (``utils/platform.thread_stream``)
+and each leg's ``device_fetch`` waits only for its own thread's stream, so
+the two legs, and the legs of concurrent requests, overlap on the device.
 """
 
 from __future__ import annotations

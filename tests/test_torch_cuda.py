@@ -292,26 +292,16 @@ def test_cuda_keyword_engine_matches_cpu(tmp_path, monkeypatch, need_matched):
     assert [h.doc_id for h in single[0]] == [h.doc_id for h in cpu.search(queries[5])[0]]
 
 
-def test_cuda_node_matches_cpu_node(tmp_path, monkeypatch):
-    """One data directory, two nodes: the card's answers equal the CPU's
-    (plain versions) up to ties, and every vector leg launches the top-2
-    kernel. 3,000 paragraphs take the int8 route once the threshold is
-    lowered (p_pad 4,096, the top-2 scan's gate)."""
-    _need_card()
-    import nucliadb_tpu_torch.index.vector.device as device
-    from nucliadb_tpu_torch.index.vector import VectorConfig
-    from nucliadb_tpu_torch.models.internal import IndexParagraph, ResourceDoc, TextInformation, VectorSentence
-    from nucliadb_tpu_torch.services import EmbeddedNode
-    from nucliadb_tpu_torch.shard import ShardSearchRequest
+_WORDS = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf", "hotel"]
 
-    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
-    rng = np.random.default_rng(5)
-    words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf", "hotel"]
-    vecs = rng.standard_normal((3000, 128)).astype(np.float32)
-    nodes = {d: EmbeddedNode(str(tmp_path / "node"), device=d) for d in ("cuda", "cpu")}
-    sid = nodes["cuda"].create_shard("kb", {"m": VectorConfig(dimension=128)}, shard_id="s")
-    for r in range(30):
-        texts = [" ".join(rng.choice(words, 6)) for _ in range(100)]
+
+def _index_resources(node, sid, rng, vecs, rids):
+    """Index resources ``rids`` of 100 paragraphs each (six words of
+    ``_WORDS``, vector row ``r * 100 + j`` of ``vecs``) into shard ``sid``."""
+    from nucliadb_tpu_torch.models.internal import IndexParagraph, ResourceDoc, TextInformation, VectorSentence
+
+    for r in rids:
+        texts = [" ".join(rng.choice(_WORDS, 6)) for _ in range(100)]
         rd = ResourceDoc(resource_id=f"r{r:03d}")
         rd.texts["t/t"] = TextInformation(text=" ".join(texts))
         paras, start = {}, 0
@@ -322,12 +312,50 @@ def test_cuda_node_matches_cpu_node(tmp_path, monkeypatch):
             paras[f"r{r:03d}/t/t/{start}-{end}"] = p
             start = end + 1
         rd.paragraphs["t/t"] = paras
-        nodes["cuda"].index(sid, rd)
+        node.index(sid, rd)
+
+
+def _hybrid_request(vecs, i):
+    from nucliadb_tpu_torch.shard import ShardSearchRequest
+
+    return ShardSearchRequest(body=" ".join(_WORDS[i % 8 : i % 8 + 2]), vector=vecs[i * 37 % len(vecs)],
+                              top_k=10, document=True)
+
+
+def _assert_same_legs(got, want):
+    """Two responses of one card: every leg's hits equal up to ties within
+    RTOL (another batch size may sum a rerank dot in another order)."""
+    from torch_test_helpers import assert_same_ranked, plain
+
+    g, w = plain(got)[1], plain(want)[1]
+    assert_same_ranked([h[1] for h in g["vector"]], [h[1] for h in w["vector"]], lambda h: h["key"], what="vector")
+    for leg, key in (("paragraph", "paragraph_id"), ("document", "key")):
+        assert (g[leg] is None) == (w[leg] is None), leg
+        if w[leg] is not None:
+            assert_same_ranked([h[1] for h in g[leg][1]["hits"]], [h[1] for h in w[leg][1]["hits"]],
+                               lambda h: h[key], what=leg)
+            assert g[leg][1]["total"] == w[leg][1]["total"], leg
+
+
+def test_cuda_node_matches_cpu_node(tmp_path, monkeypatch):
+    """One data directory, two nodes: the card's answers equal the CPU's
+    (plain versions) up to ties, and every vector leg launches the top-2
+    kernel. 3,000 paragraphs take the int8 route once the threshold is
+    lowered (p_pad 4,096, the top-2 scan's gate)."""
+    _need_card()
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.index.vector import VectorConfig
+    from nucliadb_tpu_torch.services import EmbeddedNode
+
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(5)
+    vecs = rng.standard_normal((3000, 128)).astype(np.float32)
+    nodes = {d: EmbeddedNode(str(tmp_path / "node"), device=d) for d in ("cuda", "cpu")}
+    sid = nodes["cuda"].create_shard("kb", {"m": VectorConfig(dimension=128)}, shard_id="s")
+    _index_resources(nodes["cuda"], sid, rng, vecs, range(30))
     nodes["cuda"].tick_background()
     launches = slot_scan.LAUNCHES["top2"]
-    out = {d: [node.search(sid, ShardSearchRequest(body=" ".join(words[i % 8 : i % 8 + 2]), vector=vecs[i * 37],
-                                                   top_k=10, document=True)) for i in range(16)]
-           for d, node in nodes.items()}
+    out = {d: [node.search(sid, _hybrid_request(vecs, i)) for i in range(16)] for d, node in nodes.items()}
     assert slot_scan.LAUNCHES["top2"] >= launches + 16
     assert nodes["cuda"].searcher.shard(sid).vectors["m"].index.codes is not None
     for a, b in zip(out["cuda"], out["cpu"]):
@@ -336,3 +364,108 @@ def test_cuda_node_matches_cpu_node(tmp_path, monkeypatch):
         assert {h.key for h in a.vector} == {h.key for h in b.vector}
         np.testing.assert_allclose([h.score for h in a.paragraph.hits], [h.score for h in b.paragraph.hits], rtol=1e-4)
         assert a.paragraph.total == b.paragraph.total and a.document.total == b.document.total
+
+
+@pytest.mark.parametrize("route", ["default", "device"])
+def test_cuda_threaded_requests_wait_only_for_their_own_streams(tmp_path, monkeypatch, route):
+    """Hybrid requests from 8 threads with ``torch.cuda.synchronize`` made
+    to raise: no serving path waits for the whole card, every thread that
+    launched ran on a stream of its own, and every answer equals its solo
+    answer, on the host WAND tier and on the BM25 device program."""
+    _need_card()
+    from concurrent.futures import ThreadPoolExecutor
+
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.index.vector import VectorConfig
+    from nucliadb_tpu_torch.ops import bm25
+    from nucliadb_tpu_torch.services import EmbeddedNode
+
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
+    if route == "device":
+        monkeypatch.setenv("NDBTPU_TEXT_HOST_TIER", "0")
+    rng = np.random.default_rng(6)
+    vecs = rng.standard_normal((3000, 128)).astype(np.float32)
+    node = EmbeddedNode(str(tmp_path / "node"), device="cuda")
+    sid = node.create_shard("kb", {"m": VectorConfig(dimension=128)}, shard_id="s")
+    _index_resources(node, sid, rng, vecs, range(30))
+    node.tick_background()
+    reqs = [_hybrid_request(vecs, i) for i in range(48)]
+    solo = [node.search(sid, r) for r in reqs]
+    assert node.searcher.shard(sid).vectors["m"].index.codes is not None
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.cuda.synchronize() on a serving path")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    streams = []
+
+    def run(req):
+        resp = node.search(sid, req)
+        streams.append(torch.cuda.current_stream().cuda_stream)
+        return resp
+
+    launches, dispatches = slot_scan.LAUNCHES["top2"], sum(bm25.DISPATCHES.values())
+    with ThreadPoolExecutor(8) as pool:
+        threaded = list(pool.map(run, reqs))
+    assert slot_scan.LAUNCHES["top2"] > launches
+    assert (sum(bm25.DISPATCHES.values()) > dispatches) == (route == "device")
+    # the threads that led a vector dispatch launched on streams of their
+    # own (a thread whose query rode another's dispatch launched nothing)
+    assert len(set(streams) - {0}) > 1
+    for got, want in zip(threaded, solo):
+        _assert_same_legs(got, want)
+
+
+def test_cuda_refresh_extends_the_arena_in_place_while_searched(tmp_path, monkeypatch):
+    """A refresh writes a delta into the previous searcher's arena while
+    another thread searches the previous searcher: those answers stay the
+    previous searcher's, and the refreshed searcher answers as a cold open
+    of the same segments."""
+    _need_card()
+    import threading
+
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.index.vector import VectorConfig
+    from nucliadb_tpu_torch.services import EmbeddedNode
+    from nucliadb_tpu_torch.services.searcher import SyncedSearcher
+
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(8)
+    vecs = rng.standard_normal((3500, 128)).astype(np.float32)
+    node = EmbeddedNode(str(tmp_path / "node"), device="cuda")
+    sid = node.create_shard("kb", {"m": VectorConfig(dimension=128)}, shard_id="s")
+    _index_resources(node, sid, rng, vecs, range(30))
+    node.tick_background()
+    node.wait_for_sync()
+    before = node.searcher.shard(sid)
+    reqs = [_hybrid_request(vecs, i) for i in range(16)]
+    want_before = [before.search(r) for r in reqs]
+    _index_resources(node, sid, rng, vecs, range(30, 35))
+
+    stop, seen, errors = threading.Event(), [], []
+
+    def search_before():
+        try:
+            while not stop.is_set():
+                for req, want in zip(reqs, want_before):
+                    seen.append((before.search(req), want))
+        except BaseException as exc:  # reported below
+            errors.append(exc)
+
+    reader = threading.Thread(target=search_before)
+    reader.start()
+    try:
+        node.wait_for_sync()
+    finally:
+        stop.set()
+        reader.join(timeout=300)
+    assert not reader.is_alive() and not errors, errors
+    after = node.searcher.shard(sid)
+    assert after.vectors["m"].index.vectors is before.vectors["m"].index.vectors
+    assert seen
+    for got, want in seen:
+        _assert_same_legs(got, want)
+    cold = SyncedSearcher(node.metadata, node.storage, str(tmp_path / "cold"), device="cuda")
+    for i in list(range(16)) + [3000 // 37 + 1, 3400 // 37]:
+        req = _hybrid_request(vecs, i)
+        _assert_same_legs(node.search(sid, req), cold.search(sid, req))

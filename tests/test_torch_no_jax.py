@@ -1,5 +1,6 @@
 """The port never imports jax or the JAX package, and never moves a CUDA
-request to the CPU: its vector and keyword legs and its index node.
+request to the CPU: its vector and keyword legs, its index node and its
+product layer's /find.
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter.
@@ -113,6 +114,32 @@ _SCRIPT = textwrap.dedent(
         ))
     assert resp.vector[0].key.startswith("r4/") and resp.paragraph.hits and resp.document.hits, resp
     assert len(resp.graph) == 1 and {h.rid for h in resp.paragraph.hits} <= {"r2", "r3", "r4"}, resp
+
+    # the product layer: a knowledge box through the Processor, one /find
+    from nucliadb_tpu_torch.common.kb import KnowledgeBoxManager
+    from nucliadb_tpu_torch.ingest import Processor
+    from nucliadb_tpu_torch.maindb import Driver
+    from nucliadb_tpu_torch.models.api import (
+        CreateResourcePayload, FindRequest, KnowledgeBoxConfig, SentenceEmbedding, TextFieldPayload, VectorSetSpec,
+    )
+    from nucliadb_tpu_torch.search import SearchService
+
+    with tempfile.TemporaryDirectory() as d:
+        node = EmbeddedNode(d + "/node", storage=MemoryStorage(), device="cpu")
+        driver = Driver(d + "/kv.db")
+        kbs = KnowledgeBoxManager(driver, node)
+        processor = Processor(driver, node, kbs)
+        kbid = kbs.create(KnowledgeBoxConfig(slug="kb", vectorsets={"m": VectorSetSpec(dimension=16)}))
+        rids = []
+        for i in range(4):
+            body = " ".join(rng.choice(words, 5))
+            emb = SentenceEmbedding(start=0, end=len(body), vector=v[i, :16].tolist())
+            rids.append(processor.create_resource(kbid, CreateResourcePayload(
+                title=f"doc {i}", texts={"body": TextFieldPayload(body=body)}, embeddings={"m": {"body": [emb]}},
+            ))[0])
+        node.wait_for_sync()
+        found = SearchService(node, kbs, processor).find(kbid, FindRequest(query=body, vector=v[3, :16].tolist(), top_k=4))
+    assert found.best_matches[0].startswith(rids[3]) and found.resources[rids[3]].title == "doc 3", found
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not loaded, loaded
     # the JAX package neither: nucliadb_tpu_torch* and nucliadb_tpu_native are allowed
@@ -146,6 +173,8 @@ def test_port_sources_name_no_jax_package_import():
     assert len(sources) > 40 and {
         "nucliadb_tpu_torch/services/binding.py", "nucliadb_tpu_torch/shard/searcher.py",
         "nucliadb_tpu_torch/index/relation/__init__.py", "nucliadb_tpu_torch/telemetry/metrics.py",
+        "nucliadb_tpu_torch/search/find.py", "nucliadb_tpu_torch/common/kb.py", "nucliadb_tpu_torch/ingest/consumer.py",
+        "nucliadb_tpu_torch/maindb/driver.py", "nucliadb_tpu_torch/models/api.py",
     } <= names
     offending = [
         f"{path.relative_to(REPO)}:{text[:m.start()].count(chr(10)) + 1}"

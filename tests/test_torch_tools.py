@@ -46,3 +46,34 @@ def test_wgmma_rate_source_has_every_case():
     # every case does the same work, in whole iterations
     for n, wgs in wgmma_rate.CASES:
         assert wgmma_rate.MACS_PER_SM % (64 * n * 32 * 4 * wgs) == 0
+
+
+@pytest.mark.parametrize("path", ["node", "find"])
+def test_burst_profile_runs_on_the_cpu(monkeypatch, capsys, path):
+    """The burst probe's whole flow at a small size on the CPU (the int8
+    threshold and text group size lowered as in the node phase's
+    rehearsal): every setting timed on both routes with its payload
+    parses, a profile and a sampled burst."""
+    import json
+
+    import nucliadb_tpu_torch.index.text_engine.engine as engine
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.tools import burst_profile
+
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 256)
+    monkeypatch.setattr(device, "HOST_SCAN_ELEMS", 0)
+    monkeypatch.setattr(engine, "GROUP_MIN_DOCS", 1_000)
+    monkeypatch.delenv("NDBTPU_TEXT_HOST_TIER", raising=False)
+    burst_profile.main(["--path", path, "--resources", "12", "--paragraphs", "50", "--requests", "8", "--device", "cpu"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    times = [x for x in lines if "times" in x]
+    assert [x["route"] for x in times] == ["device", "default"]
+    settings = burst_profile.SETTINGS if path == "node" else ("served",)
+    assert all(set(x["times"]) == set(settings) for x in times)
+    parses = [p for x in times for t in x["times"].values() for _, p in t["payload_parses"]]
+    # four passes a setting; the node path parses no payload (at this size
+    # the /find path's payloads may all sit in the Processor's 2 s cache)
+    assert len(parses) == 4 * len(settings) * 2 and all(p >= 0 for p in parses)
+    assert path == "find" or not any(parses)
+    assert sum("profiled_burst" in x for x in lines) == 2 and sum("frames" in x for x in lines) == 2
+    assert __import__("sys").getswitchinterval() == 0.005

@@ -102,8 +102,11 @@ def as_port(obj):
     ``types``, ``query_language`` and ``models.internal`` (a ``ResourceDoc``
     tree), the JSON expressions of ``index.json``, the graph requests of
     ``index.relation``, ``shard.ShardSearchRequest`` (with its filters and
-    nested requests) and so on. Containers are rebuilt, other values
-    (numpy arrays among them) kept.
+    nested requests) and so on. A pydantic model of ``models.api`` is
+    dumped to plain data by alias (``RelationPayload.from_`` travels as
+    "from"), with only the fields that were set, and validated into the
+    port's model. Containers are rebuilt, other values (numpy arrays among
+    them) kept.
 
     The port keeps its own copies of those modules, so their classes and
     enums are distinct: ``evaluate_bitset`` dispatches on ``isinstance``
@@ -118,6 +121,8 @@ def as_port(obj):
             return port_cls[obj.name]
         if dataclasses.is_dataclass(obj):
             return port_cls(**{f.name: as_port(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+        if hasattr(cls, "model_validate"):  # pydantic: unset fields stay unset
+            return port_cls.model_validate(obj.model_dump(mode="json", by_alias=True, exclude_unset=True))
         raise TypeError(f"cannot rebuild {cls.__module__}.{cls.__qualname__} as the port's")
     if isinstance(obj, dict):
         return {as_port(k): as_port(v) for k, v in obj.items()}
