@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
     python3 chip_smoke.py
 
 It drives the port's vector-search paths, the semantic leg of /find, its
-keyword leg, the index node and the product /find once at full size, in
-phases that each print one line:
+keyword leg, the index node, the product /find and the standalone HTTP
+server once at full size, in phases that each print one line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
@@ -77,8 +77,9 @@ phases that each print one line:
    - a refresh adding 2,000 paragraphs: 3 groups reused, under a tenth of
      the first build's upload, answers bit-identical to a fresh build.
 7. node: the index node end to end, ``EmbeddedNode(tmp, device="cuda")``
-   with one shard of vectorset ``m`` (768-d, dot, int8): 1,000 resources of
-   200 paragraphs (200,000, one target segment of the vector merge policy),
+   with one shard of vectorset ``m`` (768-d, dot, int8): 680 resources of
+   200 paragraphs (136,000, above the exact-scan threshold of 131,072 rows,
+   so the int8 route; cut from 1,000 to keep the script inside its limit),
    made from ``SEED`` (paragraph text from config 3's vocabulary, clustered
    vectors, a label on every tenth paragraph, a title, a JSON field, three
    relations, the access group "restricted" on every seventh resource, one
@@ -93,16 +94,17 @@ phases that each print one line:
    alive, visible paragraphs; paragraph and document legs held to the
    float64 BM25 oracle. Then per-leg host times; 64 requests from 8 threads
    (fewer vector dispatches than requests, each answer its solo answer);
-   the same 64 requests answered by a searcher on the CPU over the same
+   8 of them answered by a searcher on the CPU over the same
    segments (equal within 1e-4); label, security, JSON ("and", "or"),
    key-prefix, creation-date and min_score filters, a graph and a document
    request; a deletion, then a delta of 20 resources (the arena extended
    in place, the paragraph group reused, answers equal to a fresh
    searcher's).
-8. find: the product ``/find`` in process, ``SearchService`` over
+8. find: (with the node phase running beside it in a child interpreter,
+   whose lines print after this phase's) the product ``/find`` in process, ``SearchService`` over
    ``KnowledgeBoxManager``, the ``Processor`` and the sqlite maindb, on an
    ``EmbeddedNode(tmp, device="cuda")``: one knowledge box with vectorset
-   ``m`` (768-d, dot, int8) holding the node phase's 1,000 resources of 200
+   ``m`` (768-d, dot, int8) holding the node phase's 680 resources of 200
    paragraphs, each written through ``Processor.create_resource`` as an
    API payload (the paragraphs as one text field, an embedding per
    paragraph, labels of two labelsets, an access group on two resources in
@@ -112,18 +114,43 @@ phases that each print one line:
    second node opens): the top-2 kernel must launch for every vector leg;
    each paragraph leg equals the float64 BM25 oracle, the routes agree up
    to ties, 16 fused orders equal a plain RRF recomputed from their shard
-   responses. Then 64 semantic-only requests (recall@10 >= 0.95 against the
-   exact f32 oracle); 16 label-filtered and 16 security requests per route
+   responses. Then 32 semantic-only requests (recall@10 >= 0.95 against the
+   exact f32 oracle); 8 label-filtered and 8 security requests per route
    held to an oracle of the corpus's labels and groups (their paragraph
    legs to the masked BM25 oracle, their vector legs to the masked exact
-   oracle); 16 requests through a ``SearchService`` over a node on the CPU
+   oracle); 8 requests through a ``SearchService`` over a node on the CPU
    (the same maindb and segments, equal within 1e-4); the /find p50 and
-   p90 per route, the device's busy share, and 64 requests from 8 threads
-   (each its solo answer) against the same 64 one after another.
+   p90 per route, the device's busy share and phase split over 8, and 16
+   requests from 8 threads (each its solo answer) against the same 16 one
+   after another.
+9. http: the standalone server over the /find phase's directory
+   (``maindb.db`` and ``node/``, no second knowledge box).
+   ``StandaloneApp(data_dir, port=0, device="cuda")`` served on an
+   event-loop thread with ``start_background(15)`` as the CLI starts it
+   (boot seconds with the migrations; no rollover: the shard is the same);
+   the kernel warm-up is waited for before counting. Boot A, the default
+   keyword route, counted: the 64 hybrid ``FindRequest``s dumped to JSON by
+   alias, posted from one keep-alive ``httpx`` client, each equal to the
+   /find phase's in-process answer (ties, scores within 1e-5); top-2
+   launches >= 64, no top-1 or popcount launch, no BM25 dispatch while the
+   host tier is on. Client p50/p90 and response bytes, the server's
+   ``debug=True`` split of 16 requests against the client's clock on each
+   (what its phases leave of the client's ms is the HTTP layer's cost), the
+   card's busy ms per /find (``torch.profiler``). 32 keep-alive clients send the 64 twice (each its
+   solo answer): QPS, p50, p95. Boot B, the device route
+   (``NDBTPU_TEXT_HOST_TIER=0``), a restart over the same directory: the
+   same counted requests (BM25 dispatches >= 64) and timings; 16 new
+   resources written over HTTP, each /find's top hit for one of its own
+   vectors within a deadline, one deleted and gone. Then the CLI,
+   ``python3 -m nucliadb_tpu_torch.standalone.run --device cuda``, as a
+   subprocess: ready within a deadline, its /find equal to B's, vector
+   coalescer dispatches > 0 in its ``/metrics``, SIGTERM, no traceback on
+   its stderr.
 
-It then prints the kernels' JSON line (each kernel's launches on its path
-and on the node and /find phases' counted paths, times, bound from this
-run's shapes and its share of it) and, last,
+It then prints each phase's wall seconds, the kernels' JSON line (each
+kernel's launches on its path and on the node, /find and HTTP phases'
+counted paths, times, bound from this run's shapes and its share of it)
+and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
 """
@@ -1333,16 +1360,18 @@ def host_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 NODE_FULL = {
-    "resources": 1_000,
-    # paragraphs per resource: 200,000 in all, one target segment of the
-    # vector merge policy (VECTOR_MAX_SEGMENT)
+    # 136,000 paragraphs: above EXACT_SCAN_THRESHOLD (131,072 rows), so the
+    # int8 route and the top-2 kernel (p_pad 196,608); cut from 1,000
+    # resources so the script keeps inside its time limit on a slow host
+    "resources": 680,
+    # paragraphs per resource
     "paragraphs": 200,
     "dim": DIM,
     "hybrid": 64,  # single hybrid requests on each keyword route
     "threads": 8,
     "threaded": 64,  # hybrid requests through the coalescers from the threads
     "delta": 20,  # resources indexed after the deletion
-    "cpu": 64,  # hybrid requests answered again by a searcher on the CPU
+    "cpu": 8,  # hybrid requests answered again by a searcher on the CPU
 }
 NODE_TOP_K = 20
 NODE_CPU_RTOL = 1e-4
@@ -1841,16 +1870,18 @@ def phase_node(torch, tmp, cfg, device="cuda"):
 # ---------------------------------------------------------------------------
 
 FIND_FULL = {
-    "resources": 1_000,
-    "paragraphs": 200,  # 200,000 paragraphs: the node phase's corpus generator and scale
+    "resources": 680,
+    "paragraphs": 200,  # 136,000 paragraphs: the node phase's corpus generator and scale
     "dim": DIM,
     "requests": 64,  # hybrid FindRequests on each keyword route
-    "filtered": 16,  # with a label filter_expression, on each route
-    "secured": 16,  # with security groups, on each route
-    "cpu": 16,  # answered again by a SearchService over a node on the CPU
+    "filtered": 8,  # with a label filter_expression, on each route
+    "secured": 8,  # with security groups, on each route
+    "cpu": 8,  # answered again by a SearchService over a node on the CPU
     "fusion": 16,  # fused orders recomputed from their shard responses
-    "semantic": 64,  # semantic-only requests held to the exact f32 oracle
+    "semantic": 32,  # semantic-only requests held to the exact f32 oracle
     "threads": 8,
+    "burst": 16,  # requests one after another and from the threads, on each route
+    "timed": 8,  # requests of the debug split and the profile, on each route
 }
 FIND_TOP_K = 20
 FIND_TOPICS = ("sports", "news", "science", "arts")  # labelset "topic": resource r has FIND_TOPICS[r % 4]
@@ -1978,7 +2009,9 @@ def find_results_ok(res, what):
 def phase_find(torch, tmp, cfg, device="cuda"):
     """The product /find in process (see the module docstring); prints one
     line per part and returns the launch and dispatch counts of its counted
-    main path (the hybrid requests on both keyword routes)."""
+    main path (the hybrid requests on both keyword routes), with what
+    ``phase_http`` serves again: the kbid, the requests, their answers and
+    shard responses on each route, and the corpus (host arrays only)."""
     import os
     import threading
 
@@ -2003,8 +2036,9 @@ def phase_find(torch, tmp, cfg, device="cuda"):
         return SimpleNamespace(node=node, kbs=kbs, processor=processor, search=SearchService(node, kbs, processor))
 
     # ---- build: the Processor writes maindb and indexes; merge; sync ---------
-    driver = Driver(f"{tmp}/find_kv.db")
-    node_dir = f"{tmp}/find_node"
+    # the directory as StandaloneApp lays it out, so phase_http boots over it
+    driver = Driver(f"{tmp}/maindb.db")
+    node_dir = f"{tmp}/node"
     app = stack(EmbeddedNode(node_dir, device=device))
     kbid = app.kbs.create(KnowledgeBoxConfig(slug="find", vectorsets={"m": VectorSetSpec(dimension=cfg["dim"])}))
     (sid,) = app.kbs.get_shards(kbid).shards
@@ -2029,7 +2063,7 @@ def phase_find(torch, tmp, cfg, device="cuda"):
     vindex = shard.vectors["m"].index
     check(vindex.n_para == R * P and vindex.codes is not None and not vindex.host_resident(),
           "the vector leg is not on the int8 route over every paragraph")
-    kb_bytes = os.path.getsize(f"{tmp}/find_kv.db")
+    kb_bytes = os.path.getsize(f"{tmp}/maindb.db")
     print(
         f"find build: {R} resources x {P} paragraphs ({R * P}, dim {cfg['dim']}) through the Processor on {device}: "
         f"{t_ingest:.1f}s ({R / t_ingest:.1f} resources/s, maindb {kb_bytes / 2**20:.0f} MiB); {rounds} background "
@@ -2170,22 +2204,24 @@ def phase_find(torch, tmp, cfg, device="cuda"):
     for name, ms in (("default", default_ms), ("device", device_ms)):
         timings[f"find_p50_{name}"] = float(np.percentile(ms, 50))
         timings[f"find_p90_{name}"] = float(np.percentile(ms, 90))
-    phases = {}  # SearchService's own per-phase seconds (debug=True), median of 16 requests, in ms
+    n_t = min(cfg["timed"], n_req)
+    phases = {}  # SearchService's own per-phase seconds (debug=True), median of n_t requests, in ms
     for name, app_x in (("default", app), ("device", dev)):
-        split = [app_x.search.find(kbid, find_request(corpus, i, debug=True)).timings for i in range(min(16, n_req))]
+        split = [app_x.search.find(kbid, find_request(corpus, i, debug=True)).timings for i in range(n_t)]
         phases[name] = {k: round(float(np.median([t[k] for t in split])) * 1e3, 3) for k in split[0]}
     if device == "cuda":
         for name, app_x in (("default", app), ("device", dev)):
-            busy = device_busy_ms(torch, lambda: [app_x.search.find(kbid, r) for r in reqs[:16]]) / 16
+            busy = device_busy_ms(torch, lambda: [app_x.search.find(kbid, r) for r in reqs[:n_t]]) / n_t
             timings[f"device_busy_per_find_{name}"] = busy
             timings[f"device_idle_share_{name}"] = 1.0 - busy / timings[f"find_p50_{name}"]
     t_burst, t_seq = {}, {}
+    n_b = min(cfg["burst"], n_req)
     for name, app_x, solo, resp in (("device", dev, device_out, device_resp), ("default", app, default_out, default_resp)):
         t = time.perf_counter()
-        for r in reqs:  # the same requests one after another, warm
+        for r in reqs[:n_b]:  # the same requests one after another, warm
             app_x.search.find(kbid, r)
         t_seq[name] = (time.perf_counter() - t) * 1e3
-        t_out, errors = [None] * n_req, []
+        t_out, errors = [None] * n_b, []
 
         def worker(ix):
             try:
@@ -2194,7 +2230,7 @@ def phase_find(torch, tmp, cfg, device="cuda"):
             except BaseException as e:  # reported below
                 errors.append(e)
 
-        threads = [threading.Thread(target=worker, args=(range(w, n_req, cfg["threads"]),)) for w in range(cfg["threads"])]
+        threads = [threading.Thread(target=worker, args=(range(w, n_b, cfg["threads"]),)) for w in range(cfg["threads"])]
         t = time.perf_counter()
         [th.start() for th in threads]
         [th.join(timeout=600) for th in threads]
@@ -2211,21 +2247,400 @@ def phase_find(torch, tmp, cfg, device="cuda"):
         f"{cfg['filtered']} label-filtered and {cfg['secured']} security requests per route inside their filters, "
         f"paragraph legs equal to the masked oracle, vector legs recall@10 {np.mean(filt_recall):.4f} against the "
         f"masked exact oracle; card vs CPU on {n_c} requests equal within {NODE_CPU_RTOL} (CPU {t_cpu:.1f}s); "
-        f"{n_req} requests from {cfg['threads']} threads equal their solo answers on both routes",
+        f"{n_b} requests from {cfg['threads']} threads equal their solo answers on both routes",
         flush=True,
     )
     print(
         f"find timings (host ms per /find over the counted pass of {n_req}; device busy ms per /find from "
-        f"torch.profiler over 16, idle share against the p50): {json.dumps(timings)}; phases (ms, median of 16) "
-        f"{json.dumps(phases)}; {n_req} requests one after "
+        f"torch.profiler over {n_t}, idle share against the p50): {json.dumps(timings)}; phases (ms, median of {n_t}) "
+        f"{json.dumps(phases)}; {n_b} requests one after "
         f"another (ms) {json.dumps({k: round(v, 1) for k, v in t_seq.items()})}, from {cfg['threads']} threads (ms) "
         f"{json.dumps({k: round(v, 1) for k, v in t_burst.items()})}; phase {time.perf_counter() - t_phase:.1f}s",
         flush=True,
     )
-    del app, dev, shard, shard_dev, corpus
+    del app, dev, shard, shard_dev
+    corpus.vecs = None  # phase_http needs the host arrays only
     if device == "cuda":
         torch.cuda.empty_cache()
-    return SimpleNamespace(default=default_counts, device=device_counts)
+    return SimpleNamespace(
+        default=default_counts, device=device_counts, kbid=kbid, sid=sid, reqs=reqs, corpus=corpus,
+        default_out=default_out, device_out=device_out, default_resp=default_resp, device_resp=device_resp,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the standalone server: /find and the v1 REST API over HTTP
+# ---------------------------------------------------------------------------
+
+HTTP_FULL = {
+    "clients": 32,  # keep-alive clients of the concurrent pass (bench_suite.py config 5)
+    "rounds": 2,  # the concurrent pass sends the counted requests this many times
+    "timed": 16,  # requests of the debug split, the in-process pass and the profile
+    "writes": 16,  # resources written over HTTP on the device route
+    "deadline": 240.0,  # seconds a write or a deletion may take to show in /find
+    "bg_interval": 15.0,  # the CLI's default background interval
+}
+
+
+class HttpServer:
+    """A ``StandaloneApp`` served on an event-loop thread, as the front
+    end's tests serve it, with its background loop started as the CLI
+    starts it; ``client`` is one keep-alive ``httpx.Client`` on its port."""
+
+    def __init__(self, tmp, device, bg_interval):
+        import asyncio
+        import threading
+
+        import httpx
+
+        from nucliadb_tpu_torch.standalone import StandaloneApp
+
+        t = time.perf_counter()
+        self.app = StandaloneApp(data_dir=tmp, host="127.0.0.1", port=0, device=device)
+        self.boot_s = time.perf_counter() - t  # migrations included
+        self.loop = asyncio.new_event_loop()
+        started = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(self.app.server.start())
+            started.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        check(started.wait(60), "the HTTP server did not start")
+        self.app.start_background(bg_interval)
+        self.app._warmup_thread.join(600)
+        check(self.app.warmup_seconds is not None, "the kernel warm-up failed (its traceback is above)")
+        self.base = f"http://127.0.0.1:{self.app.server.port}"
+        self.client = httpx.Client(base_url=self.base, timeout=600)
+
+    def find(self, kbid, body, client=None):
+        """(status, parsed FindResults, response bytes, client ms)."""
+        from nucliadb_tpu_torch.models.api import KnowledgeboxFindResults
+
+        t = time.perf_counter()
+        resp = (client or self.client).post(f"/api/v1/kb/{kbid}/find", json=body)
+        ms = (time.perf_counter() - t) * 1e3
+        check(resp.status_code == 200, f"/find over HTTP answered {resp.status_code}: {resp.text[:300]}")
+        return KnowledgeboxFindResults.model_validate_json(resp.content), len(resp.content), ms
+
+    def stop(self):
+        import asyncio
+
+        self.client.close()
+        self.app.stop_background()
+        asyncio.run_coroutine_threadsafe(self.app.server.stop(), self.loop).result(60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+
+
+def http_body(req) -> dict:
+    """A FindRequest as a client posts it: JSON by alias, the fields set."""
+    return req.model_dump(mode="json", by_alias=True, exclude_unset=True)
+
+
+def http_cli_command(tmp, port, device) -> list:
+    """The normal entry point, as a user starts it."""
+    import sys
+
+    return [sys.executable, "-m", "nucliadb_tpu_torch.standalone.run", "--data-dir", tmp, "--host", "127.0.0.1",
+            "--port", str(port), "--device", device]
+
+
+def http_new_payload(corpus, r: int, seed: int):
+    """Resource r's text and labels with fresh unit vectors (a write's own
+    paragraph vectors, which no other paragraph carries), as JSON."""
+    payload = find_payload(corpus, r, {})
+    rng = np.random.default_rng(seed)
+    for emb in payload.embeddings["m"]["body"]:
+        v = rng.standard_normal(len(emb.vector)).astype(np.float32)
+        emb.vector = (v / np.linalg.norm(v)).tolist()
+    return payload.model_dump(mode="json", by_alias=True, exclude_none=True)
+
+
+def http_lazy_routes(srv) -> list:
+    """The routes whose modules import a library lazily, each called only
+    where its library imports: export and import (msgpack), a learning
+    secret encrypted at rest (cryptography; the app booted with
+    ``NDBTPU_ENCRYPTION_KEY``), a streamed trainset (flatbuffers). On a
+    knowledge box of three resources; returns what ran and what did not."""
+    import importlib.util
+
+    from nucliadb_tpu_torch.learning_proxy import LEARNING_KEY
+
+    c, ran = srv.client, []
+    kbid = c.post("/api/v1/kbs", json={"slug": "routes"}).json()["uuid"]
+    for i in range(3):
+        resp = c.post(f"/api/v1/kb/{kbid}/resources", json={
+            "title": f"routes {i}", "texts": {"t": {"body": f"sentence {i}. another sentence."}},
+            "usermetadata": {"classifications": [{"labelset": "topic", "label": "a"}]},
+        })
+        check(resp.status_code == 201, f"routes: write {i} answered {resp.status_code}")
+    found = importlib.util.find_spec
+    if found("msgpack"):
+        blob = c.get(f"/api/v1/kb/{kbid}/export").content
+        copy = c.post("/api/v1/kbs/import?slug=routes-copy", content=blob)
+        check(copy.status_code == 201, f"routes: import answered {copy.status_code}")
+        n = [c.post(f"/api/v1/kb/{k}/catalog", json={}).json()["total"] for k in (kbid, copy.json()["uuid"])]
+        check(n == [3, 3], f"routes: the imported copy holds {n[1]} of {n[0]} resources")
+    ran.append(f"export/import {'ran' if found('msgpack') else 'skipped (no msgpack)'}")
+    if found("cryptography") and srv.app.learning.endecryptor.active:
+        c.patch(f"/api/v1/kb/{kbid}/configuration", json={"openai_key": "sk-secret"})
+        check(c.get(f"/api/v1/kb/{kbid}/configuration").json().get("openai_key") == "sk-secret",
+              "routes: the learning secret did not come back")
+        with srv.app.driver as txn:
+            stored = json.loads(txn.get(LEARNING_KEY.format(kbid=kbid)))
+        check(stored["openai_key"].startswith("enc::"), "routes: the learning secret is stored in the clear")
+    ran.append(f"encrypted secret {'ran' if found('cryptography') else 'skipped (no cryptography)'}")
+    if found("flatbuffers"):
+        part = c.get(f"/api/v1/kb/{kbid}/trainset").json()["partitions"][0]
+        resp = c.post(f"/api/v1/kb/{kbid}/trainset/{part}", json={"type": "FIELD_CLASSIFICATION", "batch_size": 8})
+        check(resp.status_code == 200 and resp.content, f"routes: the trainset stream answered {resp.status_code}")
+    ran.append(f"trainset {'ran' if found('flatbuffers') else 'skipped (no flatbuffers)'}")
+    return ran
+
+
+def phase_http(torch, tmp, find, cfg, device="cuda"):
+    """The standalone server over ``phase_find``'s directory (see the module
+    docstring); prints one line per part and returns the launch and
+    dispatch counts of its counted main path (the hybrid requests over HTTP
+    on both keyword routes)."""
+    import importlib.util
+    import os
+    import signal
+    import socket
+    import threading
+
+    import httpx
+
+    from nucliadb_tpu_torch.models.api import FindRequest, KnowledgeboxFindResults, SearchFeature
+    from nucliadb_tpu_torch.ops import binary_scan, bm25, slot_scan
+
+    t_phase = time.perf_counter()
+    kbid, reqs, n_req = find.kbid, find.reqs, len(find.reqs)
+    bodies = [http_body(r) for r in reqs]
+    counts, timings = {}, {}
+    os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+
+    def serve_route(name, solo, resp):
+        """Boot, the counted pass, its checks and timings on one route."""
+        srv = HttpServer(tmp, device, cfg["bg_interval"])
+        app = srv.app
+        shards = app.kbs.get_shards(kbid).shards
+        check(shards == [find.sid], f"{name}: the boot rolled the knowledge box over ({shards} != {[find.sid]})")
+        t = time.perf_counter()
+        app._sync(force=True)  # opens the shard's searcher (prewarm) before the counted pass
+        t_open = time.perf_counter() - t
+        # ---- the main path, counted: the 64 hybrid requests over HTTP ------
+        reset_launches(slot_scan, binary_scan)
+        bm25.DISPATCHES.clear()
+        out = [srv.find(kbid, b) for b in bodies]
+        c = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+        # ----------------------------------------------------------------------
+        tier = app.node.searcher.shard(shards[0]).paragraph.engine.host_tier()
+        if device == "cuda":  # on the CPU the wrappers take their plain versions, which count nothing
+            check(c.get("top2", 0) >= n_req, f"{name}: the top-2 kernel launched {c}")
+        check(c.get("top1", 0) == 0 and c.get("binary", 0) == 0, f"{name}: a kernel of another route launched {c}")
+        bm25_n = c.get("single", 0) + c.get("batch", 0)
+        if name == "device":
+            check(tier is None and bm25_n >= n_req, f"device route: the BM25 program dispatched {c}")
+        elif tier is not None:
+            check(bm25_n == 0, f"default route: the host tier dispatched {c}")
+        for i, (res, _, _) in enumerate(out):
+            find_results_ok(res, f"{name} route, HTTP find {i}")
+            find_same(res, solo[i], find_tied(resp[i]), KW_RTOL, f"{name} route, HTTP find {i} vs in process")
+        ms = [m for _, _, m in out]
+        nbytes = [n for _, n, _ in out]
+        tm = {"boot_s": srv.boot_s, "open_s": t_open, "warmup_s": app.warmup_seconds,
+              "p50_ms": float(np.percentile(ms, 50)), "p90_ms": float(np.percentile(ms, 90)),
+              "bytes_median": float(np.median(nbytes))}
+        # the server's own split (debug=True) against the client's clock on
+        # the same request: what SearchService's phases leave of the
+        # client's ms is the HTTP layer's (parse, validation, routing, the
+        # pool hop, the audit event, the JSON dump)
+        n_t = min(cfg["timed"], n_req)
+        dbg = [srv.find(kbid, dict(b, debug=True)) for b in bodies[:n_t]]
+        phases = {k: float(np.median([r.timings[k] for r, _, _ in dbg])) * 1e3 for k in dbg[0][0].timings}
+        tm["debug_client_ms_median"] = float(np.median([m for _, _, m in dbg]))
+        tm["http_layer_ms"] = float(np.median([m - 1e3 * sum(r.timings.values()) for r, _, m in dbg]))
+        tm["phases_ms"] = {k: round(v, 3) for k, v in phases.items()}
+        if device == "cuda":
+            busy = device_busy_ms(torch, lambda: [srv.find(kbid, b) for b in bodies[:n_t]]) / n_t
+            tm["device_busy_per_find_ms"] = busy
+            tm["device_idle_share"] = 1.0 - busy / tm["p50_ms"]
+        counts[name], timings[name] = c, tm
+        return srv, out
+
+    # ---- boot A: the default keyword route ------------------------------------
+    srv, out_a = serve_route("default", find.default_out, find.default_resp)
+    # ---- 32 keep-alive clients, 128 requests (bench_suite.py config 5) --------
+    n_cl, work = cfg["clients"], [i for _ in range(cfg["rounds"]) for i in range(n_req)]
+    results, errors, lat = [None] * len(work), [], [None] * len(work)
+
+    def client_worker(w):
+        try:
+            with httpx.Client(base_url=srv.base, timeout=600) as cl:
+                for j in range(w, len(work), n_cl):
+                    results[j], _, lat[j] = srv.find(kbid, bodies[work[j]], client=cl)
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client_worker, args=(w,)) for w in range(n_cl)]
+    t = time.perf_counter()
+    [th.start() for th in threads]
+    [th.join(timeout=1200) for th in threads]
+    wall = time.perf_counter() - t
+    check(not errors and all(r is not None for r in results), f"concurrent /find failed: {errors[:1]}")
+    for j, res in enumerate(results):
+        i = work[j]
+        find_same(res, out_a[i][0], find_tied(find.default_resp[i]), KW_RTOL, f"concurrent find {j} vs its solo answer")
+    conc = {"clients": n_cl, "requests": len(work), "qps": len(work) / wall, "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95)), "wall_s": wall}
+    srv.stop()
+    del srv
+
+    # ---- boot B: the device route, a restart over the same directory ----------
+    os.environ["NDBTPU_TEXT_HOST_TIER"] = "0"
+    if importlib.util.find_spec("cryptography"):  # B stores learning secrets encrypted
+        from nucliadb_tpu_torch.utils.encryption import Endecryptor
+
+        os.environ["NDBTPU_ENCRYPTION_KEY"] = Endecryptor.generate_key()
+    srv, _ = serve_route("device", find.device_out, find.device_resp)
+    lazy_routes = http_lazy_routes(srv)
+    # ---- writes over HTTP: new resources, visible through /find; a deletion ---
+    corpus, rng = find.corpus, np.random.default_rng(SEED + 7)
+    new = []
+    t = time.perf_counter()
+    for k in range(cfg["writes"]):
+        payload = http_new_payload(corpus, k, SEED + 100 + k)
+        resp = srv.client.post(f"/api/v1/kb/{kbid}/resources", json=payload)
+        check(resp.status_code == 201, f"write {k} answered {resp.status_code}: {resp.text[:300]}")
+        j = int(rng.integers(0, len(payload["embeddings"]["m"]["body"])))
+        new.append((resp.json()["uuid"], payload["embeddings"]["m"]["body"][j]["vector"]))
+    t_write = time.perf_counter() - t
+
+    def semantic(vector):
+        return http_body(FindRequest(query="", vector=vector, features=[SearchFeature.SEMANTIC], top_k=FIND_TOP_K))
+
+    def wait_until(ok, what):
+        t0 = time.perf_counter()
+        while not ok():
+            check(time.perf_counter() - t0 < cfg["deadline"], f"{what} did not show within {cfg['deadline']}s")
+            time.sleep(0.5)
+        return time.perf_counter() - t0
+
+    def top_is(rid, vector):
+        best = srv.find(kbid, semantic(vector))[0].best_matches
+        return bool(best) and best[0].startswith(rid + "/")
+
+    t_visible = wait_until(lambda: all(top_is(rid, v) for rid, v in new), f"the {len(new)} writes")
+    gone, gone_v = new[0]
+    check(srv.client.delete(f"/api/v1/kb/{kbid}/resource/{gone}").status_code == 204, "the deletion was refused")
+    t_deleted = wait_until(lambda: gone not in srv.find(kbid, semantic(gone_v))[0].resources, "the deletion")
+    check(srv.client.get(f"/api/v1/kb/{kbid}/resource/{gone}").status_code == 404, "the deleted resource is readable")
+    final_body = bodies[0]
+    seen = find_capture(srv.app.node)
+    final_b = srv.find(kbid, final_body)[0]
+    final_tied = find_tied(seen[0][0])
+    srv.stop()
+    del srv, seen
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the normal entry point, as a subprocess -------------------------------
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    with open(f"{tmp}/cli.err", "w+") as log_err:
+        # NDBTPU_TEXT_HOST_TIER=0 still set: the CLI serves boot B's route
+        proc = subprocess.Popen(http_cli_command(tmp, port, device), stdout=subprocess.DEVNULL, stderr=log_err,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            with httpx.Client(base_url=f"http://127.0.0.1:{port}", timeout=600) as cl:
+                while True:
+                    check(proc.poll() is None, f"the CLI exited with {proc.returncode}")
+                    check(time.perf_counter() - t < cfg["deadline"], "the CLI did not become ready")
+                    try:
+                        if cl.get("/health/ready").status_code == 200:
+                            break
+                    except httpx.TransportError:
+                        time.sleep(0.2)
+                t_ready = time.perf_counter() - t
+                resp = cl.post(f"/api/v1/kb/{kbid}/find", json=final_body)
+                check(resp.status_code == 200, f"the CLI's /find answered {resp.status_code}")
+                cli_res = KnowledgeboxFindResults.model_validate_json(resp.content)
+                find_same(cli_res, final_b, final_tied, KW_RTOL, "the CLI's /find vs boot B's")
+                metrics = cl.get("/metrics").text
+                m = re.search(r'^ndbtpu_coalescer_dispatches\{index="vector"\} ([0-9.e+]+)$', metrics, re.M)
+                check(m is not None and float(m.group(1)) > 0, "the CLI's /metrics shows no vector-coalescer dispatch")
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        log_err.seek(0)
+        err = log_err.read()
+    os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+    os.environ.pop("NDBTPU_ENCRYPTION_KEY", None)
+    check("Traceback" not in err, f"the CLI's stderr holds a traceback:\n{err[-3000:]}")
+
+    def rounded(d):
+        return {k: (rounded(v) if isinstance(v, dict) else round(v, 3)) for k, v in d.items()}
+
+    print(
+        f"http requests: {n_req} hybrid /find over HTTP from one keep-alive client on each keyword route, each equal "
+        f"to phase_find's in-process answer (ties, scores within {KW_RTOL}); counts default route "
+        f"{json.dumps(counts['default'])}, device route {json.dumps(counts['device'])}; {len(work)} requests from "
+        f"{n_cl} keep-alive clients equal their solo answers; {len(new)} writes over HTTP in {t_write:.1f}s, each "
+        f"/find's top hit for its own vector after {t_visible:.1f}s, a deletion gone after {t_deleted:.1f}s; "
+        f"{', '.join(lazy_routes)}; the CLI "
+        f"ready in {t_ready:.1f}s, its /find equal to boot B's, exited on SIGTERM ({proc.returncode}) with no traceback",
+        flush=True,
+    )
+    print(
+        f"http timings (client ms per /find over the counted pass; boot and open seconds; the server's debug split and "
+        f"the client's ms less its phases, medians of {cfg['timed']}): {json.dumps(rounded(timings))}; concurrent "
+        f"{json.dumps(rounded(conc))}; phase {time.perf_counter() - t_phase:.1f}s",
+        flush=True,
+    )
+    return SimpleNamespace(default=counts["default"], device=counts["device"])
+
+
+def node_phase_start(tmp):
+    """``phase_node`` in a child interpreter, so that its host-bound
+    indexing and merge rounds overlap ``phase_find``'s (the two share
+    nothing: each has its own data directory, launch counts and CUDA
+    context). Returns the process and the file that keeps its lines."""
+    import os
+    import sys
+
+    log = open(f"{tmp}/node_phase.log", "w+")
+    code = (
+        "import json, torch, chip_smoke\n"
+        f"out = chip_smoke.phase_node(torch, {tmp!r}, chip_smoke.NODE_FULL)\n"
+        "print('node counts: ' + json.dumps({'default': out.default, 'device': out.device}), flush=True)\n"
+    )
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def node_phase_wait(proc, log) -> SimpleNamespace:
+    """Waits for the child's ``phase_node``, prints its lines, and returns
+    its counts as ``phase_node`` returns them."""
+    proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    print(text, end="", flush=True)
+    check(proc.returncode == 0, f"the node phase failed (exit {proc.returncode})")
+    m = re.search(r"^node counts: (.*)$", text, re.M)
+    check(m is not None, "the node phase printed no counts")
+    return SimpleNamespace(**json.loads(m.group(1)))
 
 
 def main() -> None:
@@ -2281,6 +2696,8 @@ def main() -> None:
         flush=True,
     )
 
+    seconds = {"kernels": time.perf_counter() - t}  # each phase's wall seconds, for the time limit
+    t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         corpus = Corpus(torch, tmp)
         searcher, top2_launches = phase_slice(torch, slot_scan, binary_scan, corpus)
@@ -2295,12 +2712,25 @@ def main() -> None:
         phase_binary_breakdown(torch, searcher, corpus.q_np)
         del searcher
         corpus.free(torch)
+    seconds["slices"], t = time.perf_counter() - t, time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         phase_keyword(torch, tmp, KW_FULL)
-    with tempfile.TemporaryDirectory() as tmp:
-        node = phase_node(torch, tmp, NODE_FULL)
-    with tempfile.TemporaryDirectory() as tmp:
-        find = phase_find(torch, tmp, FIND_FULL)
+    seconds["keyword"], t = time.perf_counter() - t, time.perf_counter()
+    with tempfile.TemporaryDirectory() as node_tmp, tempfile.TemporaryDirectory() as tmp:
+        # the node phase runs beside the /find phase (its lines print after
+        # the /find phase's), then the HTTP phase runs alone
+        node_proc, node_log = node_phase_start(node_tmp)
+        try:
+            find = phase_find(torch, tmp, FIND_FULL)
+        except BaseException:
+            node_proc.kill()
+            node_proc.wait()
+            raise
+        node = node_phase_wait(node_proc, node_log)
+        seconds["node beside find"], t = time.perf_counter() - t, time.perf_counter()
+        http = phase_http(torch, tmp, find, HTTP_FULL)  # over phase_find's knowledge box
+    seconds["http"] = time.perf_counter() - t
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}", flush=True)
     print(
         "note: int8_scan_slots_resident has no serving route in either package; its kernel is the "
         "top-1 mode of int8_slot_scan.cu, so its launches are that mode's on the int8 + pallas path",
@@ -2330,6 +2760,8 @@ def main() -> None:
                # paths (both keyword routes each)
                "node_launches": node.default.get(mode, 0) + node.device.get(mode, 0),
                "find_launches": find.default.get(mode, 0) + find.device.get(mode, 0),
+               # and on the HTTP phase's counted path (both keyword routes)
+               "http_launches": http.default.get(mode, 0) + http.device.get(mode, 0),
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                # no single PyTorch call computes a slot table
                "library_ms": None, "share": bound_ms / k_ms}

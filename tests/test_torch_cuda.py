@@ -469,3 +469,70 @@ def test_cuda_refresh_extends_the_arena_in_place_while_searched(tmp_path, monkey
     for i in list(range(16)) + [3000 // 37 + 1, 3400 // 37]:
         req = _hybrid_request(vecs, i)
         _assert_same_legs(node.search(sid, req), cold.search(sid, req))
+
+
+def test_cuda_http_find_matches_cpu_http_find(tmp_path, monkeypatch):
+    """One data directory served over HTTP by two standalone apps, one on
+    the card and one on the CPU: the same hybrid /find answers (the same
+    top block and block set, fused and paragraph scores within 1e-4), and
+    the card's vector legs launch the top-2 kernel. 3,000 paragraphs take
+    the int8 route once the threshold is lowered (p_pad 4,096)."""
+    _need_card()
+    import nucliadb_tpu_torch.index.vector.device as device
+    from torch_test_helpers import serving, standalone_app
+
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(9)
+    words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf", "hotel"]
+    vecs = rng.standard_normal((3000, 128)).astype(np.float32)
+    apps = {"cuda": standalone_app("nucliadb_tpu_torch", "cuda")(data_dir=str(tmp_path), host="127.0.0.1", port=0)}
+    with serving(apps["cuda"]) as client:
+        kbid = client.post("/api/v1/kbs", json={"slug": "kb", "vectorsets": {"m": {"dimension": 128}}}).json()["uuid"]
+        for r in range(30):
+            parts = [" ".join(rng.choice(words, 5)) for _ in range(100)]
+            embeddings, start = [], 0
+            for j, text in enumerate(parts):
+                embeddings.append({"start": start, "end": start + len(text), "vector": vecs[r * 100 + j].tolist()})
+                start += len(text) + 2
+            resp = client.post(f"/api/v1/kb/{kbid}/resources", json={
+                "title": f"doc {r}", "texts": {"body": {"body": "\n\n".join(parts)}},
+                "embeddings": {"m": {"body": embeddings}},
+            })
+            assert resp.status_code == 201, resp.text
+        apps["cuda"].node.tick_background()
+        apps["cuda"]._sync(force=True)
+        bodies = [{"query": " ".join(rng.choice(words, 2)), "vector": vecs[7 * i].tolist(), "top_k": 20}
+                  for i in range(16)]
+        launches = slot_scan.LAUNCHES["top2"]
+        out = {"cuda": [client.post(f"/api/v1/kb/{kbid}/find", json=b).json() for b in bodies]}
+        assert slot_scan.LAUNCHES["top2"] >= launches + 16
+    apps["cpu"] = standalone_app("nucliadb_tpu_torch", "cpu")(data_dir=str(tmp_path), host="127.0.0.1", port=0)
+    with serving(apps["cpu"]) as client:
+        apps["cpu"]._sync(force=True)
+        out["cpu"] = [client.post(f"/api/v1/kb/{kbid}/find", json=b).json() for b in bodies]
+    for app in apps.values():
+        app.stop_background()
+
+    def scores(res):
+        return {pid: p["score"] for r in res["resources"].values() for f in r["fields"].values()
+                for pid, p in f["paragraphs"].items()}
+
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a["best_matches"][:1] == b["best_matches"][:1] and set(a["best_matches"]) == set(b["best_matches"])
+        sa, sb = scores(a), scores(b)
+        assert sa.keys() == sb.keys()
+        np.testing.assert_allclose([sa[k] for k in sb], [sb[k] for k in sb], rtol=1e-4)
+
+
+def test_cuda_phase_http_rehearsal(tmp_path, monkeypatch, capsys):
+    """``chip_smoke``'s /find and HTTP phases at a small size on the card:
+    the HTTP answers equal the in-process ones on both keyword routes, the
+    top-2 kernel launches for every vector leg served over HTTP, and the
+    CLI (``--device cuda``) answers and exits cleanly."""
+    _need_card()
+    import chip_smoke
+    from torch_test_helpers import rehearse_phase_http
+
+    counts = rehearse_phase_http(chip_smoke, tmp_path, monkeypatch, "cuda")
+    assert counts.default.get("top2", 0) >= 12 and counts.device.get("top2", 0) >= 12
+    assert "its /find equal to boot B's, exited on SIGTERM" in capsys.readouterr().out

@@ -1,6 +1,6 @@
 """The port never imports jax or the JAX package, and never moves a CUDA
-request to the CPU: its vector and keyword legs, its index node and its
-product layer's /find.
+request to the CPU: its vector and keyword legs, its index node, its
+product layer's /find and its standalone server answering /find over HTTP.
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter.
@@ -140,25 +140,84 @@ _SCRIPT = textwrap.dedent(
         node.wait_for_sync()
         found = SearchService(node, kbs, processor).find(kbid, FindRequest(query=body, vector=v[3, :16].tolist(), top_k=4))
     assert found.best_matches[0].startswith(rids[3]) and found.resources[rids[3]].title == "doc 3", found
-    loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
-    assert not loaded, loaded
-    # the JAX package neither: nucliadb_tpu_torch* and nucliadb_tpu_native are allowed
-    loaded = sorted(m for m in sys.modules if m == "nucliadb_tpu" or m.startswith("nucliadb_tpu."))
-    assert not loaded, loaded
+    _no_jax_loaded()
+    print("OK")
+    """
+)
+
+_NO_JAX = textwrap.dedent(
+    """
+    import sys
+
+    def _no_jax_loaded():
+        loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+        assert not loaded, loaded
+        # the JAX package neither: nucliadb_tpu_torch* and nucliadb_tpu_native are allowed
+        loaded = sorted(m for m in sys.modules if m == "nucliadb_tpu" or m.startswith("nucliadb_tpu."))
+        assert not loaded, loaded
+    """
+)
+
+# the standalone server: boot on the CPU, serve one /find over HTTP
+_SERVER_SCRIPT = textwrap.dedent(
+    """
+    import asyncio, tempfile, threading
+    import httpx
+    import numpy as np
+    from nucliadb_tpu_torch.standalone import StandaloneApp
+
+    with tempfile.TemporaryDirectory() as d:
+        app = StandaloneApp(data_dir=d, host="127.0.0.1", port=0, device="cpu")
+        app.start_background(3600.0)
+        app._warmup_thread.join(60)
+        assert app.warmup_seconds is not None
+        loop = asyncio.new_event_loop()
+        started = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(loop)
+            loop.run_until_complete(app.server.start())
+            started.set()
+            loop.run_forever()
+
+        threading.Thread(target=run, daemon=True).start()
+        assert started.wait(30)
+        v = np.random.default_rng(0).standard_normal(16)
+        with httpx.Client(base_url=f"http://127.0.0.1:{app.server.port}", timeout=60) as client:
+            kbid = client.post("/api/v1/kbs", json={"slug": "kb", "vectorsets": {"m": {"dimension": 16}}}).json()["uuid"]
+            body = "the quick brown fox"
+            rid = client.post(f"/api/v1/kb/{kbid}/resources", json={
+                "title": "fox", "texts": {"t": {"body": body}},
+                "embeddings": {"m": {"t": [{"start": 0, "end": len(body), "vector": v.tolist()}]}},
+            }).json()["uuid"]
+            app._sync(force=True)
+            found = client.post(f"/api/v1/kb/{kbid}/find", json={"query": "quick fox", "vector": v.tolist()})
+        loop.call_soon_threadsafe(loop.stop)
+        app.stop_background()
+    assert found.status_code == 200 and rid in found.json()["resources"], found.text
+    _no_jax_loaded()
     print("OK")
     """
 )
 
 
-def test_port_imports_no_jax():
+def _fresh_interpreter(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+        [sys.executable, "-c", _NO_JAX + script], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_port_imports_no_jax():
+    _fresh_interpreter(_SCRIPT)
+
+
+def test_port_server_imports_no_jax():
+    _fresh_interpreter(_SERVER_SCRIPT)
 
 
 # "import nucliadb_tpu", "from nucliadb_tpu.x import", "import nucliadb_tpu.x as y",
@@ -175,6 +234,10 @@ def test_port_sources_name_no_jax_package_import():
         "nucliadb_tpu_torch/index/relation/__init__.py", "nucliadb_tpu_torch/telemetry/metrics.py",
         "nucliadb_tpu_torch/search/find.py", "nucliadb_tpu_torch/common/kb.py", "nucliadb_tpu_torch/ingest/consumer.py",
         "nucliadb_tpu_torch/maindb/driver.py", "nucliadb_tpu_torch/models/api.py",
+        "nucliadb_tpu_torch/standalone/app.py", "nucliadb_tpu_torch/standalone/run.py",
+        "nucliadb_tpu_torch/standalone/workers.py", "nucliadb_tpu_torch/http/server.py",
+        "nucliadb_tpu_torch/migrator/migrations.py", "nucliadb_tpu_torch/train/dataset.py",
+        "nucliadb_tpu_torch/common/export_import.py", "nucliadb_tpu_torch/utils/warmup.py",
     } <= names
     offending = [
         f"{path.relative_to(REPO)}:{text[:m.start()].count(chr(10)) + 1}"

@@ -29,3 +29,35 @@ def test_phase_node_rehearsal(tmp_path, monkeypatch, capsys):
     # the device route dispatched the BM25 program for every keyword leg
     assert counts.device.get("single", 0) + counts.device.get("batch", 0) >= 8
     assert "NDBTPU_TEXT_HOST_TIER" not in __import__("os").environ
+
+
+def test_node_phase_child_runner(tmp_path, monkeypatch, capsys):
+    """``main`` runs the node phase in a child interpreter beside the /find
+    phase: the child's command calls ``phase_node`` at ``NODE_FULL`` in the
+    given directory, its lines are printed when it ends, its counts come
+    back, and a failed child fails the run."""
+    import subprocess
+    import sys
+
+    import pytest
+
+    seen, real_popen = [], subprocess.Popen
+
+    def stub(exit_code):
+        def popen(cmd, **kw):
+            seen.append(cmd)
+            body = 'print("node build: stub"); print(\'node counts: {"default": {"top2": 64}, "device": {}}\')'
+            return real_popen([sys.executable, "-c", f"{body}; raise SystemExit({exit_code})"], **kw)
+
+        return popen
+
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", stub(0))
+    out = chip_smoke.node_phase_wait(*chip_smoke.node_phase_start(str(tmp_path)))
+    cmd = seen[0]
+    assert cmd[0] == sys.executable and cmd[1] == "-c"
+    assert f"chip_smoke.phase_node(torch, {str(tmp_path)!r}, chip_smoke.NODE_FULL)" in cmd[2]
+    assert out.default == {"top2": 64} and out.device == {}
+    assert "node build: stub" in capsys.readouterr().out
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", stub(1))
+    with pytest.raises(SystemExit, match="the node phase failed"):
+        chip_smoke.node_phase_wait(*chip_smoke.node_phase_start(str(tmp_path)))

@@ -1,6 +1,7 @@
 """Inputs and checks shared by the port's CPU and CUDA tests (numpy only,
 so the CUDA tests run where jax is not installed)."""
 
+import contextlib
 import dataclasses
 import enum
 import importlib
@@ -211,3 +212,87 @@ def assert_same_response(got, want):
             assert sorted(gl["ematches"]) == sorted(wl["ematches"])
     assert_plain_close(g["graph"], w["graph"])
     assert g["prefilter"] == w["prefilter"]
+
+
+def standalone_app(package, device="cpu"):
+    """``package``'s ``StandaloneApp``: the JAX package's class as it is,
+    the port's with ``device`` bound (the CPU unless a card test asks)."""
+    import functools
+
+    cls = importlib.import_module(f"{package}.standalone").StandaloneApp
+    if package == "nucliadb_tpu":
+        return cls
+    return functools.partial(cls, device=device)
+
+
+@contextlib.contextmanager
+def serving(app, timeout=60):
+    """Serve ``app`` (a ``StandaloneApp`` of either package) on an
+    event-loop thread, as the front-end tests do, and yield an
+    ``httpx.Client`` on its port; the loop stops on exit."""
+    import asyncio
+    import threading
+
+    import httpx
+
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(app.server.start())
+        started.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    assert started.wait(30), "server did not start"
+    client = httpx.Client(base_url=f"http://127.0.0.1:{app.server.port}", timeout=timeout)
+    try:
+        yield client
+    finally:
+        client.close()
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+
+
+# the routing constants shrunk so a knowledge box of 2,000 paragraphs takes
+# a full-size shard's routes (the int8 codes, a paragraph group of its own)
+_SHRUNK = "device.EXACT_SCAN_THRESHOLD, device.HOST_SCAN_ELEMS, engine.GROUP_MIN_DOCS = 256, 0, 1000\n"
+
+
+def rehearse_phase_http(chip_smoke, tmp_path, monkeypatch, device):
+    """``chip_smoke.phase_find`` then ``phase_http`` at a small size on
+    ``device``, with the routing constants shrunk in this process and in
+    the CLI's interpreter; returns phase_http's counts."""
+    import sys
+
+    import torch
+
+    import nucliadb_tpu_torch.index.text_engine.engine as engine
+    import nucliadb_tpu_torch.index.vector.device as vector_device
+
+    monkeypatch.setattr(vector_device, "EXACT_SCAN_THRESHOLD", 256)
+    monkeypatch.setattr(vector_device, "HOST_SCAN_ELEMS", 0)
+    monkeypatch.setattr(engine, "GROUP_MIN_DOCS", 1_000)
+    monkeypatch.delenv("NDBTPU_TEXT_HOST_TIER", raising=False)
+    command = chip_smoke.http_cli_command
+
+    def cli_command(tmp, port, dev):
+        argv = command(tmp, port, dev)
+        assert argv[1:3] == ["-m", "nucliadb_tpu_torch.standalone.run"]
+        prelude = (
+            "import sys\n"
+            "import nucliadb_tpu_torch.index.text_engine.engine as engine\n"
+            "import nucliadb_tpu_torch.index.vector.device as device\n" + _SHRUNK
+            + "from nucliadb_tpu_torch.standalone.run import main\n"
+        )
+        return [sys.executable, "-c", prelude + f"sys.argv = ['run', *{argv[3:]!r}]\nmain()\n"]
+
+    monkeypatch.setattr(chip_smoke, "http_cli_command", cli_command)
+    # dim 128: the top-2 scan's gate takes D a multiple of 128
+    cfg = dict(chip_smoke.FIND_FULL, resources=40, paragraphs=50, dim=128, requests=12, filtered=4, secured=4,
+               fusion=6, semantic=12, cpu=4)
+    find = chip_smoke.phase_find(torch, str(tmp_path), cfg, device=device)
+    http_cfg = dict(chip_smoke.HTTP_FULL, clients=4, timed=4, writes=3, deadline=120.0, bg_interval=1.0)
+    return chip_smoke.phase_http(torch, str(tmp_path), find, http_cfg, device=device)
