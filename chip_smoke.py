@@ -6,8 +6,9 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
     python3 chip_smoke.py
 
 It drives the port's vector-search paths, the semantic leg of /find, its
-keyword leg, the index node, the product /find and the standalone HTTP
-server once at full size, in phases that each print one line:
+keyword leg, the index node, the product /find, the standalone HTTP
+server and the opt-in ANN strategies once at full size, in phases that
+each print one line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
@@ -146,6 +147,28 @@ server once at full size, in phases that each print one line:
    subprocess: ready within a deadline, its /find equal to B's, vector
    coalescer dispatches > 0 in its ``/metrics``, SIGTERM, no traceback on
    its stderr.
+10. ann: (in a child interpreter of its own beside the /find phase, like
+   the node phase) the ``hnsw`` and ``ivf`` flags at BASELINE config 1's
+   shape: 100,000 x 768 rows of ``tools/hnsw_build_bench.py``'s clustered
+   recipe from ``SEED`` (rows 1 and 2 copies of row 0, the labels
+   "/l/thirty" on 30 % and "/l/five" on 5 % of rows), 1,024 queries (rows
+   plus noise) in batches of 64, top-10, dot. HNSW: ``create_segment`` on
+   the card (the build timed, the host linker's share of it), a searcher
+   opens it with ``hnsw.BUILDS`` unchanged, the counted walks (one per
+   batch, no slot scan) reach recall@10 >= 0.95 against the exact oracle
+   at the default regime (trips a walk, ms a batch, the card's busy
+   share); the 30 % filter walks (recall >= 0.8 against the filtered
+   oracle), the 5 % filter scans (>= 0.99); ``with_duplicates=False``
+   keeps one of the three copies; a CPU searcher over the same files
+   agrees (recall within 0.005, scores within 1e-4); two segments of
+   50,000 stitched (``n_segments == 2``, recall >= 0.9). IVF: k-means
+   timed at create, none at open (``ivf.KMEANS``), recall@10 at nprobe 16,
+   ms a batch, the filters and the dedup. The node: ``EmbeddedNode(tmp,
+   device="cuda")`` with a vectorset flagged ``hnsw``, 100 resources x 200
+   paragraphs of the node phase's corpus indexed, merged (the merged
+   graph built on the card) and synced; 16 hybrid requests whose vector
+   legs walk the graph, held to the exact oracle (recall@10 >= 0.9) and
+   the BM25 oracle.
 
 It then prints each phase's wall seconds, the kernels' JSON line (each
 kernel's launches on its path and on the node, /find and HTTP phases'
@@ -2610,37 +2633,368 @@ def phase_http(torch, tmp, find, cfg, device="cuda"):
     return SimpleNamespace(default=counts["default"], device=counts["device"])
 
 
-def node_phase_start(tmp):
-    """``phase_node`` in a child interpreter, so that its host-bound
-    indexing and merge rounds overlap ``phase_find``'s (the two share
-    nothing: each has its own data directory, launch counts and CUDA
-    context). Returns the process and the file that keeps its lines."""
+# ---------------------------------------------------------------------------
+# the opt-in ANN strategies: the HNSW graph and IVF, through the vector index
+# and the node
+# ---------------------------------------------------------------------------
+
+ANN_FULL = {
+    # BASELINE config 1's shape: one segment of 100,000 x 768 (below the
+    # reference's 200k merge cap), dot over normalised rows, top-10
+    "rows": 100_000,
+    "dim": 768,
+    "centers": 4096,  # tools/hnsw_build_bench.py's recipe
+    "queries": 1024,
+    "batch": 64,
+    "cpu_batch": 64,  # the first batch answered again by a searcher on the CPU
+    # the node: a shard whose vectorset is flagged hnsw
+    "node": {"resources": 100, "paragraphs": 200, "dim": DIM, "hybrid": 16, "threaded": 16, "delta": 0, "cpu": 0},
+}
+ANN_NPROBE = 16
+# filtered recall of the graph walk under the 30 % label filter: 0.86 at
+# 100,000 x 768 on the card (PERF.md §6), below the 0.9 that
+# tests/test_hnsw.py holds at 2,000 rows (the JAX package's walk, which the
+# port's equals)
+ANN_FILTER_BAR = 0.8
+ANN_STITCHED_BAR = 0.9  # stitched graphs (tests/test_vector_hnsw_strategy.py's bar)
+# the node's vector leg on the walk: the JAX package's bar for the hnsw
+# strategy through the vector index (tests/test_vector_hnsw_strategy.py).
+# The walk over the node's corpus reaches 0.944 on these 16 requests, as
+# the JAX package's walk does on it (PERF.md §6); phase_node's int8 scan
+# is held to RECALL_BAR
+ANN_NODE_BAR = 0.9
+
+
+def ann_elems(vecs_np):
+    """One paragraph per row: ``key_of(i)``, the label "/l/thirty" on rows
+    i % 10 < 3 (30 %) and "/l/five" on rows i % 20 == 0 (5 %)."""
+    from nucliadb_tpu_torch.index.vector import Elem
+
+    def labels(i):
+        return (["/l/thirty"] if i % 10 < 3 else []) + (["/l/five"] if i % 20 == 0 else [])
+
+    return [Elem(key=key_of(i), vectors=vecs_np[i], labels=labels(i)) for i in range(vecs_np.shape[0])]
+
+
+def ann_search_all(searcher, q_np, batch, **kw):
+    from nucliadb_tpu_torch.index.vector import VectorSearchRequest
+
+    hits = []
+    for lo in range(0, q_np.shape[0], batch):
+        hits += searcher.search(VectorSearchRequest(vectors=q_np[lo : lo + batch], top_k=TOP_K, **kw))
+    return hits
+
+
+def ann_recall(hits, oracle) -> float:
+    return float(np.mean([
+        len({h.key for h in row[:TOP_K]} & {key_of(int(i)) for i in oracle[r] if i >= 0}) / TOP_K
+        for r, row in enumerate(hits)
+    ]))
+
+
+def phase_ann(torch, tmp, cfg, device="cuda"):
+    """The ``hnsw`` and ``ivf`` strategies on ``device`` (module docstring,
+    part 10); prints one line per part and returns the counts of the
+    counted paths."""
+    from nucliadb_tpu_torch.index.vector import (
+        LabelAtom, Seq, SimpleOpenIndex, VectorConfig, VectorSearcher, VectorSearchRequest, create_segment,
+    )
+    from nucliadb_tpu_torch.ops import binary_scan, hnsw, ivf, slot_scan
+    from nucliadb_tpu_torch.services import EmbeddedNode
+    from nucliadb_tpu_torch.tools.hnsw_build_bench import LinkTimer, clustered_corpus, near_queries
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    n, d, n_q, bsz = cfg["rows"], cfg["dim"], cfg["queries"], cfg["batch"]
+    n_batches = -(-n_q // bsz)
+    vecs = clustered_corpus(n, d, device=device, seed=SEED, n_centers=cfg["centers"])
+    queries = near_queries(vecs, n_q, seed=SEED + 1)
+    vecs[1:3] = vecs[0]  # planted duplicates of row 0
+    vecs_np, q_np = vecs.cpu().numpy(), queries.cpu().numpy()
+    elems = ann_elems(vecs_np)
+    # the oracles: rows 1 and 2 repeat row 0, which the dedup keeps alone
+    alive = torch.ones(n, dtype=torch.bool, device=vecs.device)
+    alive[1:3] = False
+    oracle = exact_oracle(torch, vecs, alive, queries, TOP_K)
+    rows = torch.arange(n, device=vecs.device)
+    thirty, five = alive & (rows % 10 < 3), alive & (rows % 20 == 0)
+    filt_q = queries[:bsz]
+    oracle30 = exact_oracle(torch, vecs, thirty, filt_q, TOP_K)
+    oracle5 = exact_oracle(torch, vecs, five, filt_q, TOP_K)
+    dup_q = vecs_np[0] + np.float32(1e-3) * np.random.default_rng(SEED).standard_normal(d).astype(np.float32)
+    dup_keys = {key_of(0), key_of(1), key_of(2)}
+    out = {}
+
+    def busy_share(fn, wall_ms):
+        return device_busy_ms(torch, fn) / wall_ms if device == "cuda" else None
+
+    def check_filtered(searcher):
+        """The 30 % and 5 % label filters: only labelled rows, held to the
+        filtered oracle; the walk answers the first, the scan the second
+        (``hnsw.SEARCHES`` grows by one and by none)."""
+        res = {}
+        for label, want, bar, walks in (("/l/thirty", oracle30, ANN_FILTER_BAR, 1), ("/l/five", oracle5, 0.99, 0)):
+            before = hnsw.SEARCHES["search"]
+            hits = searcher.search(VectorSearchRequest(vectors=q_np[:bsz], top_k=TOP_K, filter=LabelAtom(label)))
+            check(hnsw.SEARCHES["search"] - before == walks, f"hnsw, {label}: {hnsw.SEARCHES['search'] - before} walks")
+            check(all(label in h.labels for row in hits for h in row), f"hnsw, {label}: an unlabelled row passed")
+            res[label] = ann_recall(hits, want)
+            check(res[label] >= bar, f"hnsw, {label}: filtered recall@10 {res[label]} < {bar}")
+        return res
+
+    def check_dedup(searcher, what):
+        for with_dup, copies in ((False, 1), (True, 3)):
+            hits = searcher.search(VectorSearchRequest(vectors=dup_q, top_k=TOP_K, with_duplicates=with_dup))[0]
+            got = len({h.key for h in hits} & dup_keys)
+            check(got == copies, f"{what}: with_duplicates={with_dup} returned {got} of the 3 copies")
+
+    # ---- HNSW: the graph built at create, opened without a build ------------
+    cfg_h = VectorConfig(dimension=d, flags=["hnsw"])
+    builds = hnsw.BUILDS["graph"]
+    t = time.perf_counter()
+    with LinkTimer(hnsw) as link:
+        meta = create_segment(f"{tmp}/hnsw", elems, cfg_h, device=device)
+        sync()
+    build_s = time.perf_counter() - t
+    check(hnsw.BUILDS["graph"] == builds + 1 and meta.index_metadata["has_graph"], "create_segment built no graph")
+    open_index = SimpleOpenIndex(segment_list=[(meta, Seq(1))])
+    t = time.perf_counter()
+    searcher = VectorSearcher(cfg_h, open_index, device=device)
+    sync()
+    open_s = time.perf_counter() - t
+    idx = searcher.index
+    check(hnsw.BUILDS["graph"] == builds + 1, "the searcher rebuilt the persisted graph")
+    check(idx.graph is not None and idx.graph.n_segments == 1 and idx.codes is None and not idx.host_resident(),
+          "the hnsw index is not on the graph route")
+    ef, trips = hnsw.default_search_params(n)
+    # the counted path: every batch walks the graph, no slot scan launches
+    reset_launches(slot_scan, binary_scan)
+    hnsw.SEARCHES.clear()
+    sync()
+    t = time.perf_counter()
+    hits = ann_search_all(searcher, q_np, bsz)
+    walk_s = time.perf_counter() - t
+    counts = dict(hnsw.SEARCHES)
+    check(counts.get("search", 0) == n_batches, f"hnsw: {counts} walks for {n_batches} batches")
+    check(not slot_scan.LAUNCHES and not binary_scan.LAUNCHES, "hnsw: a slot scan launched")
+    check_batch(hits, n_q, "hnsw")
+    recall_h = ann_recall(hits, oracle)
+    check(recall_h >= RECALL_BAR, f"hnsw recall@10 {recall_h} < {RECALL_BAR} (ef {ef}, {trips} trips)")
+    req = VectorSearchRequest(vectors=q_np[:bsz], top_k=TOP_K)
+    ms_h, _ = median_ms(lambda: searcher.search(req))
+    trips_walk = counts.get("trips", 0) / max(counts.get("search", 1), 1)
+    print(
+        f"ann hnsw: {n} x {d} on {device}; graph built at create in {build_s:.1f}s, of it the host linker "
+        f"{link.seconds:.1f}s ({link.calls} waves of {hnsw.WAVE}, {hnsw.WAVES_PER_CALL} per call, native "
+        f"{hnsw._native is not None}), opened in {open_s:.1f}s "
+        f"without a build; {n_batches} batches of {bsz}: recall@10 {recall_h:.4f} (ef {ef}, >= {trips} trips, "
+        f"{trips_walk:.2f} trips a walk), {ms_h:.3f} ms a batch",
+        flush=True,
+    )
+    filt_h = check_filtered(searcher)
+    check_dedup(searcher, "hnsw")
+    # the same files on the CPU: the same batch of 64, recall and scores
+    cpu = VectorSearcher(cfg_h, open_index, device="cpu")
+    cpu_hits = cpu.search(VectorSearchRequest(vectors=q_np[: cfg["cpu_batch"]], top_k=TOP_K))
+    card_rows = hits[: cfg["cpu_batch"]]
+    cpu_gap = abs(ann_recall(cpu_hits, oracle) - ann_recall(card_rows, oracle))
+    check(cpu_gap <= 0.005, f"hnsw: the CPU's recall differs from the card's by {cpu_gap}")
+    score_gap = max(
+        (abs(a.score - b.score) for ra, rb in zip(card_rows, cpu_hits) for a in ra for b in rb if a.key == b.key),
+        default=0.0,
+    )
+    check(score_gap <= 1e-4, f"hnsw: scores on shared ids differ by {score_gap} between the card and the CPU")
+    out["hnsw"] = {
+        "build_s": build_s, "link_s": link.seconds, "open_s": open_s, "recall": recall_h, "ef": ef, "min_trips": trips,
+        "trips_per_walk": trips_walk, "ms_per_batch": ms_h,
+        "walk_all_s": walk_s, "busy_share": busy_share(lambda: searcher.search(req), ms_h),
+        "filtered_recall": filt_h, "cpu_recall_gap": cpu_gap, "cpu_score_gap": score_gap,
+    }
+    del searcher, cpu, idx
+
+    # ---- two segments of 50k stitched ----------------------------------------
+    half = n // 2
+    t = time.perf_counter()
+    metas = [create_segment(f"{tmp}/hnsw{s}", elems[s * half : (s + 1) * half], cfg_h, device=device) for s in (0, 1)]
+    sync()
+    build2_s = time.perf_counter() - t
+    builds = hnsw.BUILDS["graph"]
+    searcher = VectorSearcher(cfg_h, SimpleOpenIndex(segment_list=[(m, Seq(i + 1)) for i, m in enumerate(metas)]),
+                              device=device)
+    check(hnsw.BUILDS["graph"] == builds and searcher.index.graph.n_segments == 2, "the two graphs were not stitched")
+    recall_s = ann_recall(ann_search_all(searcher, q_np, bsz), oracle)
+    check(recall_s >= ANN_STITCHED_BAR, f"stitched hnsw recall@10 {recall_s} < {ANN_STITCHED_BAR}")
+    out["stitched"] = {"build_s": build2_s, "recall": recall_s, "ms_per_batch": median_ms(lambda: searcher.search(req))[0]}
+    del searcher
+    print(
+        f"ann hnsw: filtered recall {json.dumps(filt_h)} (30 % walks, 5 % scans), one copy of planted duplicates; "
+        f"the CPU over the same files: recall gap {cpu_gap:.4f}, score gap {score_gap:.2e}; two segments of "
+        f"{half} stitched: built in {build2_s:.1f}s, recall@10 {recall_s:.4f}, "
+        f"{out['stitched']['ms_per_batch']:.3f} ms a batch; card busy {out['hnsw']['busy_share']} of a batch",
+        flush=True,
+    )
+
+    # ---- IVF: k-means at create, one assignment pass at open -----------------
+    cfg_i = VectorConfig(dimension=d, flags=["ivf"])
+    runs = ivf.KMEANS["kmeans"]
+    t = time.perf_counter()
+    meta = create_segment(f"{tmp}/ivf", elems, cfg_i, device=device)
+    sync()
+    kmeans_s = time.perf_counter() - t
+    check(ivf.KMEANS["kmeans"] == runs + 1 and meta.index_metadata["has_ivf"], "create_segment ran no k-means")
+    t = time.perf_counter()
+    searcher = VectorSearcher(cfg_i, SimpleOpenIndex(segment_list=[(meta, Seq(1))]), device=device)
+    sync()
+    open_i = time.perf_counter() - t
+    check(ivf.KMEANS["kmeans"] == runs + 1 and searcher.index.ivf is not None, "the searcher ran k-means again")
+    ivf.SEARCHES.clear()
+    hits = ann_search_all(searcher, q_np, bsz)
+    check(ivf.SEARCHES["search"] == n_batches, f"ivf: {dict(ivf.SEARCHES)} probe scans for {n_batches} batches")
+    check_batch(hits, n_q, "ivf")
+    recall_i = ann_recall(hits, oracle)
+    ms_i, _ = median_ms(lambda: searcher.search(req))
+    filt_i = {}
+    for label, want in (("/l/thirty", oracle30), ("/l/five", oracle5)):
+        f_hits = searcher.search(VectorSearchRequest(vectors=q_np[:bsz], top_k=TOP_K, filter=LabelAtom(label)))
+        check(all(label in h.labels for row in f_hits for h in row), f"ivf, {label}: an unlabelled row passed")
+        filt_i[label] = ann_recall(f_hits, want)
+    check_dedup(searcher, "ivf")
+    out["ivf"] = {
+        "kmeans_create_s": kmeans_s, "open_s": open_i, "clusters": int(searcher.index.ivf.centroids.shape[0]),
+        "block": searcher.index.ivf.block, "nprobe": ANN_NPROBE, "recall": recall_i, "ms_per_batch": ms_i,
+        "busy_share": busy_share(lambda: searcher.search(req), ms_i), "filtered_recall": filt_i,
+    }
+    del searcher
+    print(
+        f"ann ivf: segment with k-means at create in {kmeans_s:.1f}s ({out['ivf']['clusters']} clusters, blocks of "
+        f"{out['ivf']['block']}), opened in {open_i:.1f}s without a k-means; recall@10 at nprobe {ANN_NPROBE} "
+        f"{recall_i:.4f}, {ms_i:.3f} ms a batch of {bsz}; filtered recall {json.dumps(filt_i)}",
+        flush=True,
+    )
+    del vecs, queries
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the node: a shard whose vectorset is flagged hnsw -------------------
+    ncfg = cfg["node"]
+    corpus = NodeCorpus(torch, ncfg, device)
+    R, P = corpus.R, corpus.P
+
+    def oracles(shard):
+        cached = getattr(corpus, "_oracles", None)
+        if cached is None or cached[0] is not shard:
+            cached = corpus._oracles = (shard, KwOracle(shard.paragraph.engine), KwOracle(shard.text.engine))
+        return cached[1:]
+
+    corpus.oracles = oracles
+    node = EmbeddedNode(f"{tmp}/node", device=device)
+    sid = node.create_shard("kb", {"m": VectorConfig(dimension=ncfg["dim"], flags=["hnsw"])}, shard_id="ann0")
+    node.configure_shards([{"shard_id": sid, "prewarm_enabled": True}])  # sync opens the searcher
+    builds = hnsw.BUILDS["graph"]
+    t = time.perf_counter()
+    for r in range(R):
+        node.index(sid, corpus.resource(r))
+    t_index = time.perf_counter() - t
+    index_builds = hnsw.BUILDS["graph"] - builds
+    t = time.perf_counter()
+    while True:
+        stats = node.tick_background()
+        if stats["jobs_enqueued"] == 0 and stats["merged"] == 0:
+            break
+    t_merge = time.perf_counter() - t
+    merge_builds = hnsw.BUILDS["graph"] - builds - index_builds
+    t = time.perf_counter()
+    check(node.wait_for_sync() == [sid], "sync did not open the ann shard")
+    sync()
+    t_sync = time.perf_counter() - t
+    # the sync stitches the segments' graphs (up to 8), else builds one
+    sync_builds = hnsw.BUILDS["graph"] - builds - index_builds - merge_builds
+    check(sync_builds <= 1, f"the sync built {sync_builds} graphs")
+    shard = node.searcher.shard(sid)
+    graph = shard.vectors["m"].index.graph
+    check(graph is not None, "the node's vector index has no graph")
+    segments = [s.records for index in node.metadata.get_indexes(sid) if index.kind == "vector"
+                for s in node.metadata.ready_segments(index.id)]
+    alive_n = torch.ones(corpus.vecs.shape[0], dtype=torch.bool, device=corpus.vecs.device)
+    q_dev = torch.from_numpy(corpus.q_np).to(corpus.vecs.device)
+    n_oracle = exact_oracle(torch, corpus.vecs, alive_n, q_dev, TOP_K)
+    reqs = [node_hybrid(corpus, i) for i in range(ncfg["hybrid"])]
+    # the counted path: every request's vector leg walks the graph
+    reset_launches(slot_scan, binary_scan)
+    hnsw.SEARCHES.clear()
+    resps = [node.search(sid, r) for r in reqs]
+    node_walks = hnsw.SEARCHES["search"]
+    check(node_walks >= len(reqs), f"the node's vector legs walked the graph {node_walks} times for {len(reqs)}")
+    check(not slot_scan.LAUNCHES and not binary_scan.LAUNCHES, "the node launched a slot scan")
+    for i, (rq, resp) in enumerate(zip(reqs, resps)):
+        check(len(resp.vector) == NODE_TOP_K and resp.paragraph is not None, f"ann node, hybrid {i}: a leg is missing")
+        node_check_keyword(corpus, shard, rq, resp, f"ann node, hybrid {i}")
+    recall_n = node_recall(corpus, [resp.vector for resp in resps], n_oracle)
+    out["node"] = {
+        "resources": R, "paragraphs": R * P, "index_s": t_index, "merge_s": t_merge, "sync_s": t_sync,
+        "graph_builds_indexing": index_builds, "graph_builds_merging": merge_builds, "graph_builds_sync": sync_builds,
+        "segments": segments,
+        "components": graph.n_segments, "walks": node_walks, "recall": recall_n,
+        "hybrid_ms": host_ms(lambda: node.search(sid, reqs[0]), 5),
+    }
+    print(
+        f"ann node: {R} resources x {P} paragraphs on {device}, vectorset flagged hnsw; indexed in {t_index:.1f}s "
+        f"({index_builds} graphs), merges {t_merge:.1f}s ({merge_builds} graphs) -> vector segments {segments}, "
+        f"sync {t_sync:.1f}s ({graph.n_segments} component(s), {sync_builds} graph built); {len(reqs)} hybrid "
+        f"requests: {node_walks} graph "
+        f"walks, recall@10 {recall_n:.4f}, BM25 legs equal the oracle; a request {out['node']['hybrid_ms']:.2f} ms",
+        flush=True,
+    )
+    check(recall_n >= ANN_NODE_BAR, f"ann node: vector leg recall@10 {recall_n} < {ANN_NODE_BAR}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"ann numbers: {json.dumps(out)}", flush=True)
+    return out
+
+
+def child_phase_start(tmp, name: str, call: str, result: str):
+    """``chip_smoke.<call>`` in a child interpreter, so that its host-bound
+    work overlaps the parent's phase (the two share nothing: each has its
+    own data directory, counts and CUDA context). The child prints
+    ``<name> counts: `` and the JSON of ``result`` (an expression of its
+    ``out``). Returns the process and the file that keeps its lines."""
     import os
     import sys
 
-    log = open(f"{tmp}/node_phase.log", "w+")
+    log = open(f"{tmp}/{name}_phase.log", "w+")
     code = (
         "import json, torch, chip_smoke\n"
-        f"out = chip_smoke.phase_node(torch, {tmp!r}, chip_smoke.NODE_FULL)\n"
-        "print('node counts: ' + json.dumps({'default': out.default, 'device': out.device}), flush=True)\n"
+        f"out = chip_smoke.{call}\n"
+        f"print('{name} counts: ' + json.dumps({result}), flush=True)\n"
     )
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=log, stderr=subprocess.STDOUT)
     return proc, log
 
 
-def node_phase_wait(proc, log) -> SimpleNamespace:
-    """Waits for the child's ``phase_node``, prints its lines, and returns
-    its counts as ``phase_node`` returns them."""
+def child_phase_wait(proc, log, name: str) -> dict:
+    """Waits for a child phase, prints its lines, and returns its counts."""
     proc.wait()
     log.seek(0)
     text = log.read()
     log.close()
     print(text, end="", flush=True)
-    check(proc.returncode == 0, f"the node phase failed (exit {proc.returncode})")
-    m = re.search(r"^node counts: (.*)$", text, re.M)
-    check(m is not None, "the node phase printed no counts")
-    return SimpleNamespace(**json.loads(m.group(1)))
+    check(proc.returncode == 0, f"the {name} phase failed (exit {proc.returncode})")
+    m = re.search(rf"^{name} counts: (.*)$", text, re.M)
+    check(m is not None, f"the {name} phase printed no counts")
+    return json.loads(m.group(1))
+
+
+def node_phase_start(tmp):
+    """``phase_node`` in a child interpreter beside ``phase_find`` (its
+    host-bound indexing and merge rounds overlap the /find phase's)."""
+    return child_phase_start(tmp, "node", f"phase_node(torch, {tmp!r}, chip_smoke.NODE_FULL)",
+                             "{'default': out.default, 'device': out.device}")
+
+
+def node_phase_wait(proc, log) -> SimpleNamespace:
+    """Waits for the child's ``phase_node``, prints its lines, and returns
+    its counts as ``phase_node`` returns them."""
+    return SimpleNamespace(**child_phase_wait(proc, log, "node"))
 
 
 def main() -> None:
@@ -2716,20 +3070,30 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase_keyword(torch, tmp, KW_FULL)
     seconds["keyword"], t = time.perf_counter() - t, time.perf_counter()
-    with tempfile.TemporaryDirectory() as node_tmp, tempfile.TemporaryDirectory() as tmp:
-        # the node phase runs beside the /find phase (its lines print after
-        # the /find phase's), then the HTTP phase runs alone
+    with (
+        tempfile.TemporaryDirectory() as node_tmp,
+        tempfile.TemporaryDirectory() as ann_tmp,
+        tempfile.TemporaryDirectory() as tmp,
+    ):
+        # the node and ANN phases run beside the /find phase, each in its
+        # own interpreter (their lines print after the /find phase's), then
+        # the HTTP phase runs alone
         node_proc, node_log = node_phase_start(node_tmp)
+        ann_proc, ann_log = child_phase_start(ann_tmp, "ann", f"phase_ann(torch, {ann_tmp!r}, chip_smoke.ANN_FULL)",
+                                              "out")
         try:
             find = phase_find(torch, tmp, FIND_FULL)
         except BaseException:
-            node_proc.kill()
-            node_proc.wait()
+            for proc in (node_proc, ann_proc):
+                proc.kill()
+                proc.wait()
             raise
         node = node_phase_wait(node_proc, node_log)
-        seconds["node beside find"], t = time.perf_counter() - t, time.perf_counter()
+        ann = child_phase_wait(ann_proc, ann_log, "ann")
+        seconds["node and ann beside find"], t = time.perf_counter() - t, time.perf_counter()
         http = phase_http(torch, tmp, find, HTTP_FULL)  # over phase_find's knowledge box
     seconds["http"] = time.perf_counter() - t
+    seconds["ann (in its child)"] = ann["phase_s"]
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}", flush=True)
     print(
         "note: int8_scan_slots_resident has no serving route in either package; its kernel is the "

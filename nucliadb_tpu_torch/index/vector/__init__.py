@@ -4,10 +4,11 @@ Counterpart of ``nucliadb_tpu/index/vector/__init__.py``: the indexer the
 shard indexer and the merge worker call, and the searcher the shard
 searcher calls for the semantic leg. The compute runs through the port's
 device index (``device.py``) on an explicit ``device``: the exact tiers,
-int8 codes (with or without the ``pallas`` flag) and binary codes (with or
-without it). MULTI cardinality, the ``ivf``/``hnsw`` flags and arena paging
-are not ported yet and raise ``NotImplementedError``: MULTI and the flags
-when a resource is indexed, paging when a searcher opens.
+int8 codes (with or without the ``pallas`` flag), binary codes (with or
+without it), and the ``ivf`` and ``hnsw`` strategies, whose centroids and
+graph the indexer builds on its ``device``. MULTI cardinality and arena
+paging are not ported yet and raise ``NotImplementedError``: MULTI when a
+resource is indexed, paging when a searcher opens.
 """
 
 from __future__ import annotations
@@ -59,14 +60,16 @@ TAG_HIDDEN = "hidden"
 
 
 class VectorIndexer:
-    """Builds vector segments from resources; merges segments."""
+    """Builds vector segments from resources; merges segments. A flagged
+    config's graph or centroids are built on ``device``."""
 
-    def __init__(self, config: VectorConfig):
+    def __init__(self, config: VectorConfig, *, device: "str | torch.device" = "cuda"):
         if config.cardinality == VectorCardinality.MULTI:
             raise NotImplementedError(
                 "MULTI cardinality (MaxSim) is not ported yet (ROADMAP.md, Queue 1 item 7)"
             )
         self.config = config
+        self.device = device
 
     def resource_elems(self, resource: ResourceDoc, vectorset: str) -> list[Elem]:
         elems: list[Elem] = []
@@ -112,7 +115,7 @@ class VectorIndexer:
         if not elems:
             return None
         tags = {TAG_HIDDEN} if hidden else set()
-        return create_segment(output_dir, elems, self.config, tags=tags)
+        return create_segment(output_dir, elems, self.config, tags=tags, device=self.device)
 
     def deletions_for_resource(self, resource: ResourceDoc, vectorset: str) -> list[str]:
         """Key prefixes to delete when this resource (re)arrives: the
@@ -123,7 +126,7 @@ class VectorIndexer:
         return prefixes
 
     def merge(self, open_index: OpenIndexMetadata, output_dir: str) -> SegmentMetadata:
-        return merge_segments(output_dir, open_index, self.config)
+        return merge_segments(output_dir, open_index, self.config, device=self.device)
 
 
 @dataclass

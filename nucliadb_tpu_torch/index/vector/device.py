@@ -20,15 +20,23 @@ Routes of ``search``, as in the JAX package:
   ``_search_binary_pallas`` (flag ``pallas``, a bucketed batch of at most
   64, ``binary_scan.binary_eligible``) takes its candidates from the
   popcount slot scan (``ops/binary_scan.py``); ``_search_binary`` from an
-  exact top-c of the optimistic estimates.
+  exact top-c of the optimistic estimates;
+- flag ``ivf``: the probe scan of ``ops/ivf.py`` over a blocked int8 layout
+  built when the index opens (from the biggest segment's persisted
+  centroids when it holds at least a quarter of the rows);
+- flag ``hnsw``: the beam search of ``ops/hnsw.py`` over the segments'
+  persisted graphs stitched together (up to 8), or one graph built over
+  the arena, while at least a tenth of the rows pass the filter
+  (``_use_graph``); otherwise the scan routes above.
+  Both over-fetch ``2k + 8`` under ``with_duplicates=False`` and cut with
+  ``_exact_dedup_cut``.
 
 The routes and their gates are the JAX package's (``device.py:589-632``);
 each slot scan is a CUDA kernel for tensors on the card and its plain
 version on the CPU.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, Queue 1):
-MULTI cardinality, the ``ivf``/``hnsw`` flags and
-``NDBTPU_VECTOR_ARENA_BUDGET`` paging.
+MULTI cardinality and ``NDBTPU_VECTOR_ARENA_BUDGET`` paging.
 
 Unlike JAX arrays, torch tensors are updated in place: an incremental
 refresh writes the new rows into the previous index's arena (see
@@ -47,7 +55,7 @@ import torch
 from ...types import Seq
 from ...utils.buckets import bucket
 
-from ...ops import binary_scan, quant, slot_scan
+from ...ops import binary_scan, hnsw, ivf, quant, slot_scan
 from ...ops.distance import prepare_query, rerank_scores, scores_matmul
 from ...ops.topk import NEG_INF, masked_topk
 from ...utils.platform import device_fetch, resolve_device, stream_wait, thread_stream
@@ -71,9 +79,6 @@ def _check_ported(config: VectorConfig) -> None:
     where = "is not ported yet (ROADMAP.md, Queue 1)"
     if config.cardinality == VectorCardinality.MULTI:
         raise NotImplementedError(f"MULTI cardinality (MaxSim) {where}")
-    unported = {"ivf", "hnsw"} & set(config.flags)
-    if unported:
-        raise NotImplementedError(f"vector flags {sorted(unported)} {where}")
     if int(os.environ.get("NDBTPU_VECTOR_ARENA_BUDGET", "0") or 0) > 0:
         raise NotImplementedError(f"NDBTPU_VECTOR_ARENA_BUDGET paging {where}")
 
@@ -189,9 +194,82 @@ class DeviceVectorIndex:
             # as the JAX package does, re-encode the whole arena (a delta is
             # already written into it above)
             self.codes = quant.BinaryCodes.encode(self.vectors)
+
+        # flag "ivf": reuse the biggest segment's persisted centroids when it
+        # holds at least a quarter of the rows (one assignment pass)
+        self.ivf: ivf.DeviceIVF | None = None
+        if "ivf" in config.flags and self.n_para > 0:
+            best = max(
+                (s for s, _ in segments if s.ivf_centroids is not None),
+                key=lambda s: s.n_paragraphs,
+                default=None,
+            )
+            centroids = None
+            if best is not None and best.n_paragraphs * 4 >= self.n_para:
+                centroids = torch.from_numpy(np.asarray(best.ivf_centroids, np.float32))
+            self.ivf = ivf.build_ivf(self.vectors, self.n_para, centroids=centroids)
+
+        # flag "hnsw": the segments' persisted graphs stitched, else one
+        # graph built over the arena
+        self.graph: hnsw.DeviceHnsw | None = None
+        if "hnsw" in config.flags and self.n_para > 0:
+            stitched = self._stitch_segment_graphs(segments)
+            if stitched is not None:
+                adj, entry_ids = stitched
+                n_components = len(segments)
+            else:
+                adj, entry_ids = hnsw.build_graph(flat, vectors_dev=self.vectors)
+                n_components = 1
+            self.graph = self._device_graph(adj, entry_ids, n_components)
         # searches on other threads' streams read the arena (the in-place
-        # delta included) once this index is published
+        # delta included) and the strategies' state once this index is
+        # published
         stream_wait(self.device)
+
+    def _device_graph(self, adj: np.ndarray, entry_ids: np.ndarray, n_components: int) -> hnsw.DeviceHnsw:
+        """The [n_para] graph padded to the arena's rows, on the device."""
+        adj_pad = np.full((self.p_pad, adj.shape[1]), -1, np.int64)
+        adj_pad[: self.n_para] = adj
+        seg_of = None
+        if n_components > 1:
+            seg_pad = np.zeros(self.p_pad, np.int64)
+            seg_pad[: self.n_para] = self.para_seg
+            seg_of = torch.from_numpy(seg_pad).to(self.device)
+        return hnsw.DeviceHnsw(
+            adj=torch.from_numpy(adj_pad).to(self.device),
+            entry_ids=torch.from_numpy(np.asarray(entry_ids, np.int64)).to(self.device),
+            n_nodes=self.n_para,
+            seg_of=seg_of,
+            n_segments=n_components,
+        )
+
+    @staticmethod
+    def _stitch_segment_graphs(
+        segments: Sequence[tuple[LoadedSegment, Seq]],
+    ) -> tuple[np.ndarray, np.ndarray] | None:
+        """Disjoint union of the segments' persisted graphs: node ids shift
+        by each segment's row offset and the entry sets unite; no edge
+        crosses segments (the search reserves beam slots per component).
+        None (build one graph) when a segment has no graph or there are
+        more than 8."""
+        if (
+            not segments
+            or len(segments) > 8
+            or any(seg.hnsw_adj is None for seg, _ in segments)
+        ):
+            return None
+        m_max = max(seg.hnsw_adj.shape[1] for seg, _ in segments)
+        adj_parts: list[np.ndarray] = []
+        entry_parts: list[np.ndarray] = []
+        offset = 0
+        for seg, _ in segments:
+            adj = np.asarray(seg.hnsw_adj, dtype=np.int32)
+            if adj.shape[1] < m_max:
+                adj = np.pad(adj, ((0, 0), (0, m_max - adj.shape[1])), constant_values=-1)
+            adj_parts.append(np.where(adj >= 0, adj + offset, -1))
+            entry_parts.append(np.asarray(seg.hnsw_entry, dtype=np.int32) + offset)
+            offset += seg.n_paragraphs
+        return np.concatenate(adj_parts), np.concatenate(entry_parts)
 
     @classmethod
     def from_reference_state(
@@ -212,10 +290,14 @@ class DeviceVectorIndex:
         ``para_seg [n_para] i32`` and, when the index has int8 codes,
         ``codes [p_pad, D] i8`` and ``scale [p_pad] f32``, or, when it has
         binary codes, ``codes_t [D/32, p_pad] u32`` (or its int32 view),
-        ``bin_scale``, ``resid`` and ``popcnt`` (``[p_pad] f32``); for
-        example the ``np.asarray`` of a JAX ``DeviceVectorIndex``'s buffers.
-        Such an index has no segment identity, so it is never extended in
-        place."""
+        ``bin_scale``, ``resid`` and ``popcnt`` (``[p_pad] f32``); with a
+        graph, ``hnsw_adj [p_pad, m]``, ``hnsw_entry_ids [E]``,
+        ``hnsw_n_segments`` and (stitched) ``hnsw_seg_of [p_pad]``; with an
+        IVF layout, ``ivf_centroids``, ``ivf_block_codes``,
+        ``ivf_block_scale``, ``ivf_block_ids``, ``ivf_cluster_blocks`` and
+        ``ivf_block``; for example the ``np.asarray`` of a JAX
+        ``DeviceVectorIndex``'s buffers. Such an index has no segment
+        identity, so it is never extended in place."""
         _check_ported(config)
         self = cls.__new__(cls)
         self.device = resolve_device(device)
@@ -256,6 +338,29 @@ class DeviceVectorIndex:
                 scale=f32("bin_scale"), resid=f32("resid"), popcnt=f32("popcnt"),
                 dim=config.dimension,
             )
+
+        def i64(key):
+            return torch.tensor(np.asarray(arrays[key]), dtype=torch.int64, device=self.device)
+
+        self.graph = None
+        if "hnsw_adj" in arrays:
+            self.graph = hnsw.DeviceHnsw(
+                adj=i64("hnsw_adj"),
+                entry_ids=i64("hnsw_entry_ids"),
+                n_nodes=self.n_para,
+                seg_of=i64("hnsw_seg_of") if "hnsw_seg_of" in arrays else None,
+                n_segments=int(arrays.get("hnsw_n_segments", 1)),
+            )
+        self.ivf = None
+        if "ivf_centroids" in arrays:
+            self.ivf = ivf.DeviceIVF(
+                centroids=f32("ivf_centroids"),
+                block_codes=torch.tensor(arrays["ivf_block_codes"], dtype=torch.int8, device=self.device),
+                block_scale=f32("ivf_block_scale"),
+                block_ids=i64("ivf_block_ids"),
+                cluster_blocks=i64("ivf_cluster_blocks"),
+                block=int(arrays["ivf_block"]),
+            )
         stream_wait(self.device)
         return self
 
@@ -272,10 +377,15 @@ class DeviceVectorIndex:
 
     def host_resident(self) -> bool:
         """True when ``search`` serves from the host exact tier and so
-        launches nothing on the device: a host arena and no codes. (The
-        JAX package also rules out an IVF layout, a graph and paged arenas,
+        launches nothing on the device: a host arena, and no codes, IVF
+        layout or graph. (The JAX package also rules out paged arenas,
         which this index refuses when it opens.)"""
-        return self._host_arena is not None and self.codes is None
+        return (
+            self._host_arena is not None
+            and self.codes is None
+            and self.ivf is None
+            and self.graph is None
+        )
 
     def _can_extend(self, prev: "DeviceVectorIndex | None", store_dtype) -> bool:
         """True when ``prev``'s arena is reusable as a prefix of this one:
@@ -289,6 +399,8 @@ class DeviceVectorIndex:
             return False
         if set(prev.config.flags) != set(self.config.flags):
             return False
+        if "ivf" in self.config.flags or "hnsw" in self.config.flags:
+            return False  # those strategies hold state derived from the whole arena
         if prev.p_pad != self.p_pad or prev.n_para > self.n_para:
             return False
         if prev.vectors.dtype != store_dtype:
@@ -369,8 +481,11 @@ class DeviceVectorIndex:
         thread_stream(self.device)
         if para_mask is None:
             mask_t = self.base_mask_device()
+            matching = int(self.alive.sum())
         else:
-            mask_t = torch.from_numpy(self.base_mask() & para_mask).to(self.device)
+            combined = self.base_mask() & para_mask
+            matching = int(combined.sum())
+            mask_t = torch.from_numpy(combined).to(self.device)
         # the floor compares in f32, as the JAX package's device scalar does
         ms = float(np.float32(NEG_INF if min_score is None else min_score))
 
@@ -383,7 +498,24 @@ class DeviceVectorIndex:
         pallas = "pallas" in self.config.flags
         dim = self.config.dimension
         args = (self.codes, self.vectors, qt, mask_t, ms, top_k, sim, dedup)
-        if isinstance(self.codes, quant.Int8Codes):
+        # ivf/hnsw honour the dedup by over-fetching and running the exact
+        # rescore + duplicate cut
+        k1 = min(2 * top_k + 8, self.p_pad) if dedup else top_k
+        if self.ivf is not None:
+            s, i = ivf.ivf_search(self.ivf, self.vectors, prepare_query(qt, sim), mask_t, ms, k1)
+            if dedup:
+                s, i = _exact_dedup_cut(self.vectors, qt, i, ms, top_k, sim)
+        elif self.graph is not None and self._use_graph(matching, top_k):
+            # the size-scaled default regime holds the 0.95 recall bar
+            ef, trips = hnsw.default_search_params(self.graph.n_nodes)
+            g = self.graph
+            s, i = hnsw.hnsw_search(
+                self.vectors, g.adj, g.entry_ids, qt, mask_t, ms, k1, ef=ef, trips=trips,
+                similarity=sim, seg_of=g.seg_of, n_segments=g.n_segments,
+            )
+            if dedup:
+                s, i = _exact_dedup_cut(self.vectors, qt, i, ms, top_k, sim)
+        elif isinstance(self.codes, quant.Int8Codes):
             if pallas and slot_scan.eligible(self.p_pad, dim, False):
                 s, i = _search_int8_pallas(*args)
             else:
@@ -445,6 +577,13 @@ class DeviceVectorIndex:
             top_s = np.concatenate([top_s, pad_s], axis=-1)
             top_i = np.concatenate([top_i, pad_i], axis=-1)
         return top_s.astype(np.float32), top_i.astype(np.int64)
+
+    def _use_graph(self, matching: int, top_k: int) -> bool:
+        """The graph walk while at least a tenth of the rows pass the mask
+        (the reference's use_hnsw cost model, nidx_vector/src/segment.rs:
+        626-660); under a more selective filter the walk wastes its visits
+        on masked nodes, and the scan is exact."""
+        return self.n_para > 0 and matching / self.n_para >= 0.1
 
     def _labels_of(self, pid: int) -> list[str]:
         """Labels of one paragraph; the inverted lists build lazily once."""

@@ -10,11 +10,14 @@ column files, so a segment written by either package opens in the other:
     keys.msgpack       [P] paragraph keys (sorted)
     labels.msgpack     {label -> [paragraph ids]} postings
     para_meta.msgpack  [P] per-paragraph metadata dicts (position, split, ...)
+    hnsw_adj.npy       [P, M_MAX_0] int32 graph (flag "hnsw"), -1 padded
+    hnsw_entry.npy     [E] int32 entry set of the graph
+    ivf_centroids.npy  [K, D] f32 k-means centroids (flag "ivf")
 
 Paragraphs are stored sorted by key, so key-prefix deletions and filters
-resolve with two binary searches. Segments written with the "hnsw" or "ivf"
-flag also hold a graph or centroids, which the port neither builds nor
-reads yet (ROADMAP.md, Queue 1).
+resolve with two binary searches. The graph and the centroids are built
+once, when the segment is created or merged, on the ``device`` the caller
+names, and read back when it opens.
 """
 
 from __future__ import annotations
@@ -26,9 +29,12 @@ from typing import Iterable, Sequence
 
 import msgpack
 import numpy as np
+import torch
 
 from ...types import OpenIndexMetadata, SegmentMetadata, Seq
+from ...ops import hnsw, ivf
 from ...utils.keys import key_prefix_ranges  # noqa: F401  (re-exported)
+from ...utils.platform import device_fetch, resolve_device, thread_stream
 
 from .config import VectorConfig
 
@@ -60,6 +66,10 @@ class LoadedSegment:
     labels: dict[str, np.ndarray]  # label -> sorted int32 paragraph ids
     para_meta: list[dict]
     tags: frozenset[str] = frozenset()
+    # the persisted graph and centroids (None without the flag)
+    hnsw_adj: np.ndarray | None = None  # [P, m_max0] int32, -1 padded
+    hnsw_entry: np.ndarray | None = None  # [E] int32
+    ivf_centroids: np.ndarray | None = None  # [K, D] f32
 
     @property
     def n_paragraphs(self) -> int:
@@ -84,14 +94,11 @@ def create_segment(
     config: VectorConfig,
     *,
     tags: Iterable[str] = (),
+    device: "str | torch.device" = "cuda",
 ) -> SegmentMetadata:
-    """Write an immutable segment from a batch of elems (sorted by key)."""
-    unported = {"hnsw", "ivf"} & set(config.flags)
-    if unported:
-        raise NotImplementedError(
-            f"segment build for flags {sorted(unported)} is not ported yet "
-            "(ROADMAP.md, Queue 1)"
-        )
+    """Write an immutable segment from a batch of elems (sorted by key).
+    The graph (flag "hnsw") and the k-means centroids (flag "ivf") are
+    built on ``device``."""
     elems = sorted(elems, key=lambda e: e.key)
     dim = config.dimension
     keys: list[str] = []
@@ -124,6 +131,31 @@ def create_segment(
         f.write(msgpack.packb(labels))
     with open(os.path.join(path, "para_meta.msgpack"), "wb") as f:
         f.write(msgpack.packb(para_meta))
+    # the graph, built once here so that searcher (re)loads stitch it
+    single = vectors.shape[0] == len(keys) and len(keys) > 0
+    has_graph = "hnsw" in config.flags and single
+    if has_graph:
+        adj, entry_ids = hnsw.build_graph(vectors, device=device)
+        np.save(os.path.join(path, "hnsw_adj.npy"), adj)
+        np.save(os.path.join(path, "hnsw_entry.npy"), entry_ids)
+    # the k-means centroids (8 Lloyd passes) run once here; an index that
+    # opens the segment pays one assignment pass
+    has_ivf = "ivf" in config.flags and single
+    if has_ivf:
+        dev = resolve_device(device)
+        thread_stream(dev)
+        n = vectors.shape[0]
+        n_pad = -(-n // 8) * 8
+        padded = np.zeros((n_pad, dim), np.float32)
+        padded[:n] = vectors
+        k_clusters = ivf.default_clusters(n)
+        centroids, _ = ivf.kmeans(
+            torch.from_numpy(padded).to(dev),
+            torch.arange(n_pad, device=dev) < n,
+            k_clusters,
+            seed_idx=ivf.ivf_seed_indices(n, k_clusters),
+        )
+        np.save(os.path.join(path, "ivf_centroids.npy"), device_fetch(centroids)[0])
     meta = {
         "format_version": FORMAT_VERSION,
         "records": len(keys),
@@ -131,8 +163,8 @@ def create_segment(
         "dim": dim,
         "config": config.to_dict(),
         "tags": sorted(tags),
-        "has_graph": False,
-        "has_ivf": False,
+        "has_graph": has_graph,
+        "has_ivf": has_ivf,
     }
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -155,6 +187,12 @@ def open_segment(path: str) -> LoadedSegment:
     labels = {k: np.asarray(v, dtype=np.int32) for k, v in labels_raw.items()}
     with open(os.path.join(path, "para_meta.msgpack"), "rb") as f:
         para_meta = msgpack.unpackb(f.read())
+    hnsw_adj = hnsw_entry = ivf_centroids = None
+    if meta.get("has_graph") and os.path.exists(os.path.join(path, "hnsw_adj.npy")):
+        hnsw_adj = np.load(os.path.join(path, "hnsw_adj.npy"), mmap_mode="r")
+        hnsw_entry = np.load(os.path.join(path, "hnsw_entry.npy"))
+    if meta.get("has_ivf") and os.path.exists(os.path.join(path, "ivf_centroids.npy")):
+        ivf_centroids = np.load(os.path.join(path, "ivf_centroids.npy"))
     return LoadedSegment(
         path=path,
         config=config,
@@ -164,6 +202,9 @@ def open_segment(path: str) -> LoadedSegment:
         labels=labels,
         para_meta=para_meta,
         tags=frozenset(meta.get("tags", [])),
+        hnsw_adj=hnsw_adj,
+        hnsw_entry=hnsw_entry,
+        ivf_centroids=ivf_centroids,
     )
 
 
@@ -186,12 +227,14 @@ def merge_segments(
     out_path: str,
     open_index: OpenIndexMetadata,
     config: VectorConfig,
+    *,
+    device: "str | torch.device" = "cuda",
 ) -> SegmentMetadata:
     """Merge operant segments into one, dropping deleted paragraphs
     (``segment::merge``, nidx_vector/src/segment.rs:92-197): a filtered
     concatenation plus a postings rebuild, as the JAX package does. Tags
-    are the union of the operants' tags. ``create_segment`` refuses the
-    ``hnsw``/``ivf`` flags here too."""
+    are the union of the operants' tags. A flagged config's graph or
+    centroids are built anew on ``device`` by ``create_segment``."""
     deletions = list(open_index.deletions())
     elems: list[Elem] = []
     tags: set[str] = set()
@@ -217,4 +260,4 @@ def merge_segments(
                     metadata=seg.para_meta[pid],
                 )
             )
-    return create_segment(out_path, elems, config, tags=tags)
+    return create_segment(out_path, elems, config, tags=tags, device=device)

@@ -2,8 +2,8 @@
 
 Counterparts of ``nucliadb_tpu/ops``:
 
-- ``topk``      — masked top-k with ``lax.top_k``'s tie order, the repeat-id
-  mask;
+- ``topk``      — ``lax.top_k``'s order (``top_k``), masked top-k, the
+  repeat-id mask;
 - ``distance``  — exact scans and the exact rerank in full float32;
 - ``quant``     — int8 and binary (sign) codes, their plain estimate scans
   and candidate selection;
@@ -12,5 +12,8 @@ Counterparts of ``nucliadb_tpu/ops``:
 - ``binary_scan`` — the top-1-per-slot popcount scan of binary codes: a
   CUDA kernel (``csrc/binary_slot_scan.cu``) beside its plain version;
 - ``bm25``      — the keyword leg's BM25 group program (tier gather,
-  scatter, dense columns, cut) as torch ops.
+  scatter, dense columns, cut) as torch ops;
+- ``hnsw``      — the proximity graph's wave build (the host links through
+  ``nucliadb_tpu_native``) and its masked adaptive beam search;
+- ``ivf``       — k-means and the blocked int8 probe scan.
 """

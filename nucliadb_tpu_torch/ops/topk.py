@@ -47,6 +47,18 @@ def _select_topk(s: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return cand_s.gather(-1, order), cand_i.gather(-1, order)
 
 
+def top_k(s: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k(s, k)``: the k largest entries of the last axis and their
+    int64 positions, the lower index first among equal scores (``k`` at
+    most the axis' length)."""
+    n = s.shape[-1]
+    if 0 < k and k * 16 <= n < 2**31:
+        top_s, top_i = _select_topk(s.reshape(-1, n), k)
+        return top_s.reshape(*s.shape[:-1], k), top_i.reshape(*s.shape[:-1], k)
+    top_s, top_i = torch.sort(s, dim=-1, descending=True, stable=True)
+    return top_s[..., :k], top_i[..., :k]
+
+
 def masked_topk(
     scores: torch.Tensor,
     k: int,
@@ -72,15 +84,8 @@ def masked_topk(
         s = torch.where(mask, s, NEG_INF)
     if min_score is not None:
         s = torch.where(s >= min_score, s, NEG_INF)
-    n = s.shape[-1]
-    k_eff = min(k, n)
-    if 0 < k_eff and k_eff * 16 <= n < 2**31:
-        top_s, top_i = _select_topk(s.reshape(-1, n), k_eff)
-        top_s = top_s.reshape(*s.shape[:-1], k_eff)
-        top_i = top_i.reshape(*s.shape[:-1], k_eff)
-    else:
-        top_s, top_i = torch.sort(s, dim=-1, descending=True, stable=True)
-        top_s, top_i = top_s[..., :k_eff], top_i[..., :k_eff]
+    k_eff = min(k, s.shape[-1])
+    top_s, top_i = top_k(s, k_eff)
     top_i = torch.where(top_s > NEG_INF / 2, top_i, -1)
     if k_eff < k:
         pad = (*s.shape[:-1], k - k_eff)

@@ -48,7 +48,8 @@ class EmbeddedNode:
         """``metadata``/``storage`` default to sqlite/file backends under
         ``data_dir``, which is also the node's local scratch (segment build
         dirs, searcher cache). ``device`` is where the searchers hold their
-        arenas and run their programs."""
+        arenas and run their programs, and where the indexer and the merge
+        worker build the graphs and centroids of flagged vectorsets."""
         self.device = resolve_device(device)
         self.data_dir = data_dir or tempfile.mkdtemp(prefix="ndbtpu_node_")
         os.makedirs(self.data_dir, exist_ok=True)
@@ -61,11 +62,11 @@ class EmbeddedNode:
             os.path.join(self.data_dir, "blobs")
         )
         self.indexer = IndexerService(
-            self.metadata, self.storage, os.path.join(self.data_dir, "indexer")
+            self.metadata, self.storage, os.path.join(self.data_dir, "indexer"), device=self.device
         )
         self.scheduler = SchedulerService(self.metadata, self.storage)
         self.worker = WorkerService(
-            self.metadata, self.storage, os.path.join(self.data_dir, "worker")
+            self.metadata, self.storage, os.path.join(self.data_dir, "worker"), device=self.device
         )
         self.searcher = SyncedSearcher(
             self.metadata, self.storage, os.path.join(self.data_dir, "segments"),

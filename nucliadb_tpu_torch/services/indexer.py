@@ -1,7 +1,8 @@
 """Indexer service: one index operation -> segments + atomic metadata commit.
 
-The port's copy of ``nucliadb_tpu/services/indexer.py``,
-kept verbatim: the port imports nothing of the JAX package.
+The port's copy of ``nucliadb_tpu/services/indexer.py`` (the port imports
+nothing of the JAX package), with a ``device`` on which the graphs and
+centroids of flagged vectorsets are built.
 
 Parity: nidx/src/indexer.rs:254-419 — per-index fan-out, segment upload,
 single metadata transaction marking segments ready + recording deletions +
@@ -24,8 +25,16 @@ from ..types import Seq
 
 
 class IndexerService:
-    def __init__(self, metadata: MetadataStore, storage: Storage, work_dir: str | None = None):
+    def __init__(
+        self,
+        metadata: MetadataStore,
+        storage: Storage,
+        work_dir: str | None = None,
+        *,
+        device: "str | torch.device" = "cuda",
+    ):
         self.metadata = metadata
+        self.device = device
         self.storage = storage
         self.work_dir = work_dir or tempfile.mkdtemp(prefix="ndbtpu_indexer_")
         from ..telemetry.metrics import UtilizationTracker
@@ -74,7 +83,7 @@ class IndexerService:
             index_rows = self.metadata.get_indexes(shard_id)
             config = self._shard_config(shard_id, index_rows)
             indexes = {i.full_name: i for i in index_rows}
-            shard_indexer = ShardIndexer(config)
+            shard_indexer = ShardIndexer(config, device=self.device)
             ops = shard_indexer.index_resource(resource, op_dir, hidden=hidden)
 
             deletions: list[tuple[int, Seq, list[str]]] = []

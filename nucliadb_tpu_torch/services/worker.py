@@ -1,7 +1,8 @@
 """Worker service: executes merge jobs.
 
-The port's copy of ``nucliadb_tpu/services/worker.py``,
-kept verbatim: the port imports nothing of the JAX package.
+The port's copy of ``nucliadb_tpu/services/worker.py`` (the port imports
+nothing of the JAX package), with a ``device`` on which a merged flagged
+vectorset's graph or centroids are built.
 
 Parity: nidx/src/worker.rs:42-343 — lease a job, download operant segments,
 run the per-kind merge applying deletions with seq > segment seq, upload the
@@ -27,8 +28,16 @@ from ..types import SegmentMetadata, Seq, SimpleOpenIndex
 
 
 class WorkerService:
-    def __init__(self, metadata: MetadataStore, storage: Storage, work_dir: str | None = None):
+    def __init__(
+        self,
+        metadata: MetadataStore,
+        storage: Storage,
+        work_dir: str | None = None,
+        *,
+        device: "str | torch.device" = "cuda",
+    ):
         self.metadata = metadata
+        self.device = device
         self.storage = storage
         self.work_dir = work_dir or tempfile.mkdtemp(prefix="ndbtpu_worker_")
         from ..telemetry.metrics import UtilizationTracker
@@ -130,7 +139,7 @@ class WorkerService:
         self.metadata.heartbeat_merge_job(job.id)
 
         out_dir = os.path.join(job_dir, "merged")
-        merged = self._merge(index.kind, index.configuration, open_index, out_dir)
+        merged = self._merge(index.kind, index.configuration, open_index, out_dir, device=self.device)
         self.metadata.heartbeat_merge_job(job.id)
 
         # merged segment lives at the seq of its newest operant: deletions
@@ -153,16 +162,16 @@ class WorkerService:
         shutil.rmtree(job_dir, ignore_errors=True)
 
     @staticmethod
-    def _merge(kind: str, configuration: dict, open_index, out_dir: str) -> SegmentMetadata:
+    def _merge(kind: str, configuration: dict, open_index, out_dir: str, *, device="cuda") -> SegmentMetadata:
         from ..telemetry.metrics import merge_observer
 
         with merge_observer({"kind": kind}):
-            return WorkerService._merge_inner(kind, configuration, open_index, out_dir)
+            return WorkerService._merge_inner(kind, configuration, open_index, out_dir, device=device)
 
     @staticmethod
-    def _merge_inner(kind: str, configuration: dict, open_index, out_dir: str) -> SegmentMetadata:
+    def _merge_inner(kind: str, configuration: dict, open_index, out_dir: str, *, device="cuda") -> SegmentMetadata:
         if kind == "vector":
-            return VectorIndexer(VectorConfig.from_dict(configuration)).merge(
+            return VectorIndexer(VectorConfig.from_dict(configuration), device=device).merge(
                 open_index, out_dir
             )
         if kind == "text":

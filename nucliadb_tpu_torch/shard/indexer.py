@@ -1,7 +1,8 @@
 """Per-shard index dispatch: one resource -> one new segment per index.
 
-The port's copy of ``nucliadb_tpu/shard/indexer.py``,
-kept verbatim: the port imports nothing of the JAX package.
+The port's copy of ``nucliadb_tpu/shard/indexer.py`` (the port imports
+nothing of the JAX package), with a ``device`` on which the graphs and
+centroids of flagged vectorsets are built.
 
 Parity with the reference's indexer fan-out
 (nidx/src/indexer.rs:298-419 index_resource + the IndexKind dispatch):
@@ -44,8 +45,10 @@ def _observed(kind: str, fn, *args, **kwargs):
 
 
 class ShardIndexer:
-    def __init__(self, config: ShardConfig):
+    def __init__(self, config: ShardConfig, *, device: "str | torch.device" = "cuda"):
+        """``device`` builds the graphs and centroids of flagged vectorsets."""
         self.config = config
+        self.device = device
         self.text = TextIndexer()
         self.paragraph = ParagraphIndexer()
         self.relation = RelationIndexer()
@@ -105,7 +108,7 @@ class ShardIndexer:
             )
         )
         for vs_name, vs_config in self.config.vectorsets.items():
-            vi = VectorIndexer(vs_config)
+            vi = VectorIndexer(vs_config, device=self.device)
             ops.append(
                 IndexOp(
                     kind=IndexKind.VECTOR,

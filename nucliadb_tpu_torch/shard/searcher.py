@@ -305,12 +305,10 @@ class ShardSearcher:
         """True when neither hybrid leg will dispatch a device program —
         the text engine serves from its host WAND tier and the vector index
         from its host numpy exact tier — so the per-request thread handoff
-        that exists to overlap device round trips is pure overhead.
-
-        The JAX package also asks whether the index has an IVF layout, a
-        graph or paged arenas; the port's index has none of them (it refuses
-        those configurations when it opens), so its own host-tier test
-        answers the same question."""
+        that exists to overlap device round trips is pure overhead. The
+        index's ``host_resident`` asks the JAX package's questions: a host
+        arena, and no codes, IVF layout or graph (the port's index refuses
+        paged arenas when it opens)."""
         if self.paragraph is None or self.paragraph.engine.host_tier() is None:
             return False
         vs_name = request.vectorset or next(iter(self.vectors), "")

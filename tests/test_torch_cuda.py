@@ -536,3 +536,73 @@ def test_cuda_phase_http_rehearsal(tmp_path, monkeypatch, capsys):
     counts = rehearse_phase_http(chip_smoke, tmp_path, monkeypatch, "cuda")
     assert counts.default.get("top2", 0) >= 12 and counts.device.get("top2", 0) >= 12
     assert "its /find equal to boot B's, exited on SIGTERM" in capsys.readouterr().out
+
+
+def _exact(rng, shape):
+    return (rng.integers(-3, 4, shape) / 4).astype(np.float32)
+
+
+def test_ivf_search_on_the_card_equals_the_cpu():
+    """At D = 1,536 the int8 estimate of a query against its own row
+    (every entry +-3/4, so every code +-127) is 1536 * 127**2 > 2**24: one
+    f32 sum would round it, the chunked sum is exact. The layout built on
+    the card and its probe scan equal the CPU's, ids and scores."""
+    _need_card()
+    from nucliadb_tpu_torch.ops import ivf
+
+    rng = np.random.default_rng(21)
+    n, n_pad, d = 3000, 4096, 1536
+    v = _exact(rng, (n, d))
+    v[:4] = np.where(rng.random((4, d)) < 0.5, -0.75, 0.75)
+    q = np.concatenate([v[:4], _exact(rng, (12, d))])
+    centroids = _exact(rng, (32, d))
+    arena = np.zeros((n_pad, d), np.float32)
+    arena[:n] = v
+    out = {}
+    for dev in ("cpu", "cuda"):
+        a = torch.from_numpy(arena).to(dev)
+        index = ivf.build_ivf(a, n, centroids=torch.from_numpy(centroids).to(dev))
+        searches = ivf.SEARCHES["search"]
+        s, i = ivf.ivf_search(index, a, torch.from_numpy(q).to(dev), torch.from_numpy(np.arange(n_pad) < n).to(dev),
+                              -3.0e38, 10)
+        assert ivf.SEARCHES["search"] == searches + 1
+        out[dev] = (s.cpu().numpy(), i.cpu().numpy(), index.block_ids.cpu().numpy())
+    np.testing.assert_array_equal(out["cuda"][2], out["cpu"][2])
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    assert (out["cuda"][1][:4, 0] == np.arange(4)).all()
+    codes = torch.full((2, 5, d), 127, dtype=torch.int8)
+    qi = torch.full((2, d), -127, dtype=torch.int8)
+    got = ivf._int8_bdot(qi.cuda(), codes.cuda()).cpu()
+    assert got.dtype == torch.int32 and (got == -d * 127 * 127).all()
+
+
+def test_hnsw_on_the_card_equals_the_cpu():
+    """On exact data the graph built on the card (waves scanned there,
+    linked on the host) and the beam search there (the visited scatter's
+    -1 pads in the spare column; a filter passing 5 rows, so the loop reads
+    its continue flag up to ``max_trips``) equal the CPU's."""
+    _need_card()
+    from nucliadb_tpu_torch.ops import hnsw
+
+    rng = np.random.default_rng(22)
+    n, n_pad = 2500, 4096
+    v = _exact(rng, (n, 32))
+    graphs = {dev: hnsw.build_graph(v, wave=256, seed=3, device=dev) for dev in ("cpu", "cuda")}
+    for a, b in zip(graphs["cuda"], graphs["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    adj, entry = graphs["cpu"]
+    arena = np.zeros((n_pad, 32), np.float32)
+    arena[:n] = v
+    adj = np.pad(adj, ((0, n_pad - n), (0, 0)), constant_values=-1)
+    q = _exact(rng, (16, 32))
+    for allowed in (np.arange(n_pad) < n, (np.arange(n_pad) >= 100) & (np.arange(n_pad) < 105)):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            hnsw.SEARCHES.clear()
+            args = [torch.from_numpy(x).to(dev) for x in (arena, adj, entry, q, allowed)]
+            s, i = hnsw.hnsw_search(*args[:5], -3.0e38, 10)
+            res[dev] = (s.cpu().numpy(), i.cpu().numpy(), hnsw.SEARCHES["trips"])
+        np.testing.assert_array_equal(res["cuda"][1], res["cpu"][1])
+        np.testing.assert_array_equal(res["cuda"][0], res["cpu"][0])
+        assert res["cuda"][2] == res["cpu"][2]

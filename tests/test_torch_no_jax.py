@@ -41,6 +41,17 @@ _SCRIPT = textwrap.dedent(
         hits = searcher.search(VectorSearchRequest(vectors=v[7], top_k=3))
     assert hits[0][0].key == "r/7", hits
 
+    # the hnsw and ivf flags: the graph and the centroids built at create
+    from nucliadb_tpu_torch.ops import hnsw, ivf
+    for flag in ("hnsw", "ivf"):
+        cfg = VectorConfig(dimension=16, flags=[flag])
+        with tempfile.TemporaryDirectory() as d:
+            meta = create_segment(d + "/s", [Elem(key=f"r/{i}", vectors=v[i]) for i in range(40)], cfg, device="cpu")
+            searcher = VectorSearcher(cfg, SimpleOpenIndex(segment_list=[(meta, Seq(1))]), device="cpu")
+            hits = searcher.search(VectorSearchRequest(vectors=v[7], top_k=3))
+        assert hits[0][0].key == "r/7", (flag, hits)
+    assert hnsw.SEARCHES["search"] == 1 and ivf.SEARCHES["search"] == 1
+
     # binary codes + "pallas": the popcount slot scan's plain version
     device.EXACT_SCAN_THRESHOLD = 256
     slot_scan.SLOTS, binary_scan.BINARY_BLOCK_N = 256, 512
@@ -238,6 +249,8 @@ def test_port_sources_name_no_jax_package_import():
         "nucliadb_tpu_torch/standalone/workers.py", "nucliadb_tpu_torch/http/server.py",
         "nucliadb_tpu_torch/migrator/migrations.py", "nucliadb_tpu_torch/train/dataset.py",
         "nucliadb_tpu_torch/common/export_import.py", "nucliadb_tpu_torch/utils/warmup.py",
+        "nucliadb_tpu_torch/ops/hnsw.py", "nucliadb_tpu_torch/ops/ivf.py",
+        "nucliadb_tpu_torch/tools/hnsw_build_bench.py",
     } <= names
     offending = [
         f"{path.relative_to(REPO)}:{text[:m.start()].count(chr(10)) + 1}"
@@ -264,6 +277,9 @@ def test_cuda_request_without_a_card_raises(tmp_path):
     meta = create_segment(str(tmp_path / "s"), [Elem(key="r/0", vectors=v)], cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         VectorSearcher(cfg, SimpleOpenIndex(segment_list=[(meta, Seq(1))]), device="cuda")
+    for flag in ("hnsw", "ivf"):  # the graph and the centroids build on the card, never quietly here
+        with pytest.raises(RuntimeError, match="cuda"):
+            create_segment(str(tmp_path / flag), [Elem(key="r/0", vectors=v)], VectorConfig(dimension=8, flags=[flag]))
     from nucliadb_tpu_torch.index.paragraph import ParagraphSearcher
     from nucliadb_tpu_torch.index.text_engine.builder import DocEntry, build_segment
 

@@ -262,11 +262,14 @@ def test_refresh_through_prev_equals_a_fresh_searcher(tmp_path):
     assert {h.rid for h in got.paragraph.hits} >= {"r6", "r7", "r8"}
 
 
-@pytest.mark.parametrize("case", ["host_tiers", "text_tier_off", "vector_host_tier_off", "int8_codes", "no_vectorset"])
+@pytest.mark.parametrize(
+    "case", ["host_tiers", "text_tier_off", "vector_host_tier_off", "int8_codes", "no_vectorset", "hnsw", "ivf"]
+)
 def test_legs_host_resident_answers_as_jax(tmp_path, monkeypatch, case):
-    """The port's ``_legs_host_resident`` asks its index's own host-tier
-    test (the JAX package also asks for IVF, graph and paging state, which
-    the port's index never has) and answers as the JAX one does."""
+    """The port's ``_legs_host_resident`` asks its index's ``host_resident``
+    (a host arena, and no codes, IVF layout or graph) and answers as the
+    JAX one does: a small index flagged hnsw or ivf walks its graph or
+    probes its clusters instead of the host tier."""
     import nucliadb_tpu.index.vector.device as ref_device
     import nucliadb_tpu_torch.index.vector.device as port_device
     from nucliadb_tpu.shard import ShardConfig
@@ -280,7 +283,8 @@ def test_legs_host_resident_answers_as_jax(tmp_path, monkeypatch, case):
     if case == "int8_codes":
         monkeypatch.setattr(ref_device, "EXACT_SCAN_THRESHOLD", 1)
         monkeypatch.setattr(port_device, "EXACT_SCAN_THRESHOLD", 1)
-    vectorsets = {} if case == "no_vectorset" else {"model1": VectorConfig(dimension=16)}
+    flags = [case] if case in ("hnsw", "ivf") else []
+    vectorsets = {} if case == "no_vectorset" else {"model1": VectorConfig(dimension=16, flags=flags)}
     ref, port, cross = _pair(tmp_path, ShardConfig(shard_id="s", vectorsets=vectorsets), RESOURCES)
     if case == "text_tier_off":
         for s in (ref, port, cross):
@@ -519,8 +523,9 @@ def test_prometheus_service_metrics(tmp_path):
 
 
 def test_node_refuses_what_is_not_ported(tmp_path):
-    """Storage backends needing httpx, MULTI cardinality and the hnsw/ivf
-    flags fail loudly when asked for, and a CUDA node without a card raises."""
+    """Storage backends needing httpx and MULTI cardinality fail loudly when
+    asked for, and a CUDA node without a card raises; a CPU node indexes,
+    syncs and searches vectorsets flagged hnsw and ivf."""
     import torch
     from types import SimpleNamespace
 
@@ -533,10 +538,16 @@ def test_node_refuses_what_is_not_ported(tmp_path):
     node = port_services.EmbeddedNode(data_dir=str(tmp_path / "n"), storage=PortMemoryStorage(), device="cpu")
     multi = as_port(VectorConfig(dimension=DIM))
     multi.cardinality = VectorCardinality.MULTI
-    for name, cfg in (("multi", multi), ("graph", as_port(VectorConfig(dimension=DIM, flags=["hnsw"])))):
-        sid = node.create_shard("kb", {"m1": cfg}, shard_id=name)
-        with pytest.raises(NotImplementedError):
-            node.index(sid, as_port(make_resource("r1", "some text")))
+    sid = node.create_shard("kb", {"m1": multi}, shard_id="multi")
+    with pytest.raises(NotImplementedError):
+        node.index(sid, as_port(make_resource("r1", "some text")))
+    for flag in ("hnsw", "ivf"):
+        sid = node.create_shard("kb", {"m1": as_port(VectorConfig(dimension=DIM, flags=[flag]))}, shard_id=flag)
+        res = as_port(make_resource("r1", "some text"))
+        node.index(sid, res)
+        node.wait_for_sync()
+        index = node.searcher.shard(sid).vectors["m1"].index
+        assert (index.graph if flag == "hnsw" else index.ivf) is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             port_services.EmbeddedNode(data_dir=str(tmp_path / "c"), storage=PortMemoryStorage())

@@ -49,7 +49,7 @@ def _pair(tmp, config, resources):
     ref_oi = _index(ShardIndexer(config), resources, tmp / "jax", Seq, SimpleOpenIndex)
     port_config = as_port(config)
     port_oi = _index(
-        port_shard.ShardIndexer(port_config), as_port(resources), tmp / "port", PortSeq, PortSimpleOpenIndex
+        port_shard.ShardIndexer(port_config, device="cpu"), as_port(resources), tmp / "port", PortSeq, PortSimpleOpenIndex
     )
     ref = ShardSearcher(config, ref_oi)
     port = port_shard.ShardSearcher(port_config, port_oi, device="cpu")

@@ -125,11 +125,18 @@ def test_config_dict_round_trip_matches_jax():
 
 
 def test_unported_configurations_raise(tmp_path):
+    """MULTI cardinality and arena paging still raise; the hnsw and ivf
+    flags build their graph or centroids on the CPU and search."""
     rng = np.random.default_rng(21)
     elems = _elems(tsegment, rng, 10, DIM, 0)
-    for flag in ("hnsw", "ivf"):
-        with pytest.raises(NotImplementedError):
-            tsegment.create_segment(str(tmp_path / flag), elems, tvector.VectorConfig(DIM, flags=[flag]))
+    for flag, column in (("hnsw", "hnsw_adj"), ("ivf", "ivf_centroids")):
+        cfg = tvector.VectorConfig(DIM, flags=[flag])
+        fmeta = tsegment.create_segment(str(tmp_path / flag), elems, cfg, device="cpu")
+        assert fmeta.index_metadata[{"hnsw": "has_graph", "ivf": "has_ivf"}[flag]] is True
+        assert getattr(tsegment.open_segment(fmeta.path), column) is not None
+        searcher = tvector.VectorSearcher(cfg, tvector.SimpleOpenIndex(segment_list=[(fmeta, tvector.Seq(1))]), device="cpu")
+        hits = searcher.search(tvector.VectorSearchRequest(vectors=elems[4].vectors[0], top_k=3))
+        assert hits[0][0].key == elems[4].key
     meta = tsegment.create_segment(str(tmp_path / "s"), elems, tvector.VectorConfig(DIM))
     idx = tvector.SimpleOpenIndex(segment_list=[(meta, tvector.Seq(1))])
     with pytest.raises(NotImplementedError):
