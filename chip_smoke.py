@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 
 It drives the port's vector-search paths, the semantic leg of /find, its
 keyword leg, the index node, the product /find, the standalone HTTP
-server and the opt-in ANN strategies once at full size, in phases that
-each print one line:
+server, the opt-in ANN strategies, the beyond-HBM paged tiers and
+multivector MaxSim once at full size, in phases that each print one
+line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
@@ -49,6 +50,16 @@ each print one line:
    labelled, undeleted paragraphs; a min_score result is the floored full
    result;
 5. breakdown, after each slice: its device time by layer and its host time;
+   then paged: the same segments reopened with ``NDBTPU_VECTOR_ARENA_BUDGET``
+   at 1 GiB (the ``host_rerank`` tier: 809.5 MB of int8 codes on the card,
+   the f32 rows in host memory) and at 256 MiB (the ``stream`` tier: 16
+   uploaded chunks of 65,536 rows). Counted on host_rerank: a batch of
+   2048, a filtered, a min_score and a ``with_duplicates`` request; the
+   top-2 kernel must launch for each, the device bytes of the open stay
+   under the budget, recall@10 >= 0.95 and within 0.001 of the int8
+   slice's. Stream: ids the exact oracle's up to ties within 1e-5, the
+   filter and floor; each tier's open seconds, ms a batch, the card's busy
+   ms and the bytes uploaded a batch;
 6. keyword: bench_suite.py config 3's corpus (its 20,007-word vocabulary,
    24 zipf(1.3) tokens a paragraph, 2 % of paragraphs starting "quick brown
    fox", a ``created`` column, a label on every tenth paragraph) at
@@ -169,10 +180,26 @@ each print one line:
    graph built on the card) and synced; 16 hybrid requests whose vector
    legs walk the graph, held to the exact oracle (recall@10 >= 0.9) and
    the BM25 oracle.
+11. multi: (in a child interpreter of its own beside the /find phase) a
+   ColBERTv2-shaped late-interaction vectorset (Santhanam et al., 2022:
+   128-d token vectors, queries of 32 tokens, passages of up to 180):
+   50,000 paragraphs of 32-180 normalised token vectors from ``SEED``
+   (p_pad 65,536, m_max 192, a 6.44 GB f32 slot arena on the card), two
+   segments plus a deletion, paragraphs 1 and 2 copies of paragraph 0's
+   block, a label on every tenth. Counted: a batch of 8 queries x 32
+   tokens, 8 single vectors, a label filter, ``with_duplicates`` and a
+   floor, each held to a float64 MaxSim oracle on the host (ids up to ties
+   and scores within 1e-4); ms a batch and a single vector, the card's
+   busy ms, the peak memory. Then a knowledge box whose vectorset is
+   multivector, 100 resources x 20 paragraphs x 8-32 token vectors through
+   the ``Processor``, merged and synced, answering 16 semantic /find
+   requests with one query vector, each semantic hit its paragraph's
+   float64 MaxSim.
 
 It then prints each phase's wall seconds, the kernels' JSON line (each
 kernel's launches on its path and on the node, /find and HTTP phases'
-counted paths, times, bound from this run's shapes and its share of it)
+counted paths and on the paged phase's, times, bound from this run's
+shapes and its share of it)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
@@ -547,13 +574,13 @@ class Corpus:
     """The slices' shared state: the corpus on the card, its segments on
     disk, the queries and the exact oracle of the first 1024."""
 
-    def __init__(self, torch, tmp):
+    def __init__(self, torch, tmp, device="cuda"):
         from nucliadb_tpu_torch.index.vector import (
             Elem, Seq, SimpleOpenIndex, VectorConfig, create_segment,
         )
 
         t0 = time.perf_counter()
-        self.vecs, self.queries = make_corpus(torch, N_ROWS, DIM, BATCH)
+        self.vecs, self.queries = make_corpus(torch, N_ROWS, DIM, BATCH, device)
         # the single query sits on a deleted paragraph: it must not come back
         self.deleted_row = int(DELETED[1:-1]) * 10 + 3
         self.queries[0] = self.vecs[self.deleted_row]
@@ -659,6 +686,7 @@ def phase_slice(torch, slot_scan, binary_scan, corpus):
     check_filter_and_floor(searcher, filt_hits, floor_hits, floor_q, "int8")
 
     ms, times = median_ms(lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)))
+    corpus.resident_int8 = {"recall": recall, "ms": ms}  # phase_paged's yardstick
     print(
         f"slice int8: {N_ROWS}x{DIM}, p_pad {searcher.index.p_pad}, {N_SEGMENTS} segments + 1 deletion; "
         f"gen {corpus.t_gen:.1f}s write {corpus.t_write:.1f}s open {t_open:.1f}s; "
@@ -852,6 +880,196 @@ def phase_binary_breakdown(torch, searcher, q_np):
     b256 = cuda_ms(lambda: dv._search_binary(codes, idx.vectors, q_big, mask, floor, TOP_K, "dot", True), 1)
     print(f"breakdown binary, no kernel (ms, batch 256): {json.dumps({'whole_search_binary_b256': round(b256, 3)})}",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the paged tiers: the slices' corpus reopened under an arena budget
+# ---------------------------------------------------------------------------
+
+PAGED_BUDGETS = {"host_rerank": 1 << 30, "stream": 256 << 20}  # NDBTPU_VECTOR_ARENA_BUDGET of each tier
+PAGED_TIE_RTOL = 1e-5  # exact tiers: an id may differ from the oracle's only within this of its 10th score
+
+
+def paged_searcher(torch, corpus, budget, device):
+    """``VectorSearcher(..., device=device)`` over the slices' segments with
+    ``NDBTPU_VECTOR_ARENA_BUDGET = budget``; (searcher, open s, device bytes
+    the open added)."""
+    import os
+
+    from nucliadb_tpu_torch.index.vector import VectorConfig, VectorSearcher
+
+    before = torch.cuda.memory_allocated()
+    os.environ["NDBTPU_VECTOR_ARENA_BUDGET"] = str(budget)
+    try:
+        t = time.perf_counter()
+        searcher = VectorSearcher(VectorConfig(dimension=DIM), corpus.open_index, device=device)
+        t_open = time.perf_counter() - t
+    finally:
+        del os.environ["NDBTPU_VECTOR_ARENA_BUDGET"]
+    return searcher, t_open, torch.cuda.memory_allocated() - before
+
+
+def check_exact_up_to_ties(torch, corpus, hits, what) -> None:
+    """Each query's ids are its exact top-10 (``corpus.oracle``) but for ids
+    whose exact score lies within ``PAGED_TIE_RTOL`` of the oracle's 10th."""
+    q = corpus.queries[: len(hits)]
+    for r, row in enumerate(hits):
+        got = [int(h.key.split("/")[0][1:]) * 10 + int(h.key.split("/")[2]) for h in row]
+        want = corpus.oracle[r].tolist()
+        if set(got) == set(want):
+            continue
+        exact = (corpus.vecs[torch.tensor(got + want, device=q.device)] @ q[r]).cpu().numpy()
+        thr = exact[len(got):].min()
+        check(bool((exact[: len(got)] >= thr - PAGED_TIE_RTOL * abs(thr)).all()),
+              f"{what}: query {r} is not its exact top-{TOP_K} up to ties")
+
+
+def host_rerank_breakdown(torch, idx, q_np, device) -> dict:
+    """host_rerank's layers at a batch of ``BATCH``: ``candidates`` is
+    ``_int8_candidates`` (quantise, the top-2 scan, slot top-c) on the card
+    (CUDA events), ``candidates_fetched`` the same with its fetch (host
+    clock); then on the host the candidate rows' ``gather``, the ``dedup``
+    hash and the whole ``host_rerank_cut`` (gather, einsum, dedup, sort)."""
+    from nucliadb_tpu_torch.index.vector import device as dv
+    from nucliadb_tpu_torch.ops import quant
+    from nucliadb_tpu_torch.utils.platform import device_fetch
+
+    q = torch.from_numpy(q_np).to(device)
+    mask = torch.from_numpy(idx.base_mask()).to(device)
+    budget = quant.int8_rerank_budget(TOP_K)
+    (cand,) = device_fetch(dv._int8_candidates(idx.codes, q, budget, mask))
+    rows = idx.vectors_host[np.maximum(cand, 0)]
+    timer = cuda_ms if device == "cuda" else host_ms
+    out = {
+        "candidates": timer(lambda: dv._int8_candidates(idx.codes, q, budget, mask), 5),
+        "candidates_fetched": host_ms(lambda: device_fetch(dv._int8_candidates(idx.codes, q, budget, mask)), 3),
+        "gather": host_ms(lambda: idx.vectors_host[np.maximum(cand, 0)], 3),
+        "dedup": host_ms(lambda: dv._host_duplicate_mask(rows, cand >= 0), 3),
+        "host_rerank_cut": host_ms(lambda: idx._host_rerank_cut(q_np, cand, TOP_K, None, True), 3),
+    }
+    print(f"breakdown host_rerank (ms, batch {q_np.shape[0]}, {cand.shape[1]} candidates a query): "
+          f"{json.dumps({k: round(v, 3) for k, v in out.items()})}", flush=True)
+    return out
+
+
+def stream_breakdown(torch, idx, q_np, device) -> dict:
+    """stream's layers at a batch of ``BATCH``, per chunk: ``upload`` of one
+    chunk from pageable host memory (host clock until it is on the card)
+    and ``chunk_topk`` (``_stream_chunk_topk`` at the dedup's 2k + 8,
+    CUDA events); then ``host_rerank_cut`` over 2k + 8 candidates a query
+    (host clock); ``upload_gb_per_s`` from the chunk's bytes."""
+    from nucliadb_tpu_torch.index.vector import device as dv
+    from nucliadb_tpu_torch.utils.platform import device_fetch
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    chunk = idx.vectors_host[: idx.chunk_rows]
+    q = torch.from_numpy(q_np).to(device)
+    m = torch.ones(idx.chunk_rows, dtype=torch.bool, device=device)
+    k2 = 2 * TOP_K + 8
+
+    def upload():
+        t = torch.from_numpy(chunk).to(device)
+        sync()
+        return t
+
+    chunk_t = upload()
+    _, cand = device_fetch(*dv._stream_chunk_topk(chunk_t, q, m, k2))
+    timer = cuda_ms if device == "cuda" else host_ms
+    out = {
+        "upload": host_ms(upload, 3),
+        "chunk_topk": timer(lambda: dv._stream_chunk_topk(chunk_t, q, m, k2), 3),
+        "host_rerank_cut": host_ms(lambda: idx._host_rerank_cut(q_np, cand, TOP_K, None, True), 3),
+    }
+    out["upload_gb_per_s"] = chunk.nbytes / out["upload"] / 1e6
+    print(f"breakdown stream (ms, batch {q_np.shape[0]}, one chunk of {idx.chunk_rows} x "
+          f"{idx.p_pad // idx.chunk_rows}): {json.dumps({k: round(v, 3) for k, v in out.items()})}", flush=True)
+    return out
+
+
+def phase_paged(torch, slot_scan, binary_scan, corpus, device="cuda"):
+    """The slices' 1M x 768 corpus reopened under ``PAGED_BUDGETS``: 1 GiB
+    holds the int8 codes (809.5 MB at p_pad 1,048,576), not the f32 arena
+    (3.22 GB), so ``host_rerank``; 256 MiB holds neither, so ``stream`` in
+    chunks of 65,536 rows. Returns the top-2 launches of the counted run."""
+    from nucliadb_tpu_torch.index.vector import LabelAtom, VectorSearchRequest
+
+    q_np = corpus.q_np
+    out = {}
+
+    def busy_ms(fn):
+        return device_busy_ms(torch, fn) if device == "cuda" else float("nan")
+
+    # ---- host_rerank -------------------------------------------------------
+    searcher, t_open, added = paged_searcher(torch, corpus, PAGED_BUDGETS["host_rerank"], device)
+    idx = searcher.index
+    check(idx.paging == "host_rerank" and idx.vectors is None, f"1 GiB opened tier {idx.paging}")
+    check(added < PAGED_BUDGETS["host_rerank"], f"host_rerank holds {added} device bytes, over its budget")
+    # ---- the main path, counted -----------------------------------------
+    reset_launches(slot_scan, binary_scan)
+    batch_hits = searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K))
+    filt_hits = searcher.search(VectorSearchRequest(vectors=q_np[:64], top_k=TOP_K, filter=LabelAtom("/l/tenth")))
+    floor_hits = searcher.search(VectorSearchRequest(vectors=q_np[64:80], top_k=TOP_K, min_score=0.9))
+    dup_hits = searcher.search(VectorSearchRequest(vectors=q_np[:64], top_k=TOP_K, with_duplicates=True))
+    launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+    # ----------------------------------------------------------------------
+    check(launches.get("top2", 0) >= 4, f"top-2 slot-scan kernel launched {launches} on the host_rerank path")
+    check(launches.get("top1", 0) == 0 and launches.get("binary", 0) == 0, f"host_rerank launched {launches}")
+    check_batch(batch_hits, BATCH, "host_rerank")
+    recall = recall_at_k(batch_hits[:ORACLE_QUERIES], corpus.oracle)
+    resident = corpus.resident_int8
+    check(recall >= RECALL_BAR and abs(recall - resident["recall"]) <= 0.001,
+          f"host_rerank recall@10 {recall} (resident int8 {resident['recall']})")
+    check_filter_and_floor(searcher, filt_hits, floor_hits, q_np[64:80], "host_rerank")
+    # the corpus repeats no row, so the dedup drops nothing
+    check([[h.key for h in r] for r in dup_hits] == [[h.key for h in r] for r in batch_hits[:64]],
+          "host_rerank: with_duplicates=True differs on a corpus without repeated rows")
+    ms, times = median_ms(lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)), 3)
+    busy = busy_ms(lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)))
+    upload = q_np.nbytes + idx.p_pad  # the queries and the mask, from the shapes
+    out["host_rerank"] = {"open_s": t_open, "device_bytes": added, "recall": recall, "ms": ms, "busy_ms": busy,
+                          "upload_bytes": upload, "launches": launches.get("top2", 0)}
+    print(
+        f"paged host_rerank: budget {PAGED_BUDGETS['host_rerank']} B, open {t_open:.1f}s, device bytes {added}; "
+        f"recall@10 {recall:.4f} (resident int8 {resident['recall']:.4f}); batch {BATCH} {ms:.2f} ms "
+        f"(median of 3: {', '.join(f'{t:.2f}' for t in times)}; resident int8 {resident['ms']:.2f} ms), "
+        f"card busy {busy:.3f} ms ({busy / ms:.3f} of it); uploaded {upload} B a batch; launches {launches}",
+        flush=True,
+    )
+    out["host_rerank"]["breakdown"] = host_rerank_breakdown(torch, idx, q_np, device)
+    del searcher, idx
+    torch.cuda.empty_cache()
+    # ---- stream ------------------------------------------------------------
+    searcher, t_open, added = paged_searcher(torch, corpus, PAGED_BUDGETS["stream"], device)
+    idx = searcher.index
+    chunks = idx.p_pad // idx.chunk_rows if idx.paging == "stream" else 0
+    check(idx.paging == "stream" and idx.codes is None and chunks >= 2
+          and idx.chunk_rows * DIM * 4 <= PAGED_BUDGETS["stream"],
+          f"256 MiB opened tier {idx.paging} (chunk_rows {getattr(idx, 'chunk_rows', None)})")
+    reset_launches(slot_scan, binary_scan)
+    stream_hits = searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K))
+    filt_hits = searcher.search(VectorSearchRequest(vectors=q_np[:64], top_k=TOP_K, filter=LabelAtom("/l/tenth")))
+    floor_hits = searcher.search(VectorSearchRequest(vectors=q_np[64:80], top_k=TOP_K, min_score=0.9))
+    launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+    check(not any(launches.values()), f"the stream tier launched a slot scan: {launches}")
+    check_batch(stream_hits, BATCH, "stream")
+    check_exact_up_to_ties(torch, corpus, stream_hits[:ORACLE_QUERIES], "stream")
+    check_filter_and_floor(searcher, filt_hits, floor_hits, q_np[64:80], "stream")
+    s_recall = recall_at_k(stream_hits[:ORACLE_QUERIES], corpus.oracle)
+    s_ms, s_times = median_ms(lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)), 3)
+    s_busy = busy_ms(lambda: searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K)))
+    s_upload = idx.p_pad * DIM * 4 + idx.p_pad + q_np.nbytes  # every chunk, its masks, the queries
+    out["stream"] = {"open_s": t_open, "device_bytes": added, "recall": s_recall, "ms": s_ms, "busy_ms": s_busy,
+                     "upload_bytes": s_upload, "chunks": chunks}
+    print(
+        f"paged stream: budget {PAGED_BUDGETS['stream']} B, open {t_open:.1f}s, {chunks} chunks of "
+        f"{idx.chunk_rows}; ids the exact oracle's up to ties on {ORACLE_QUERIES} queries (recall@10 "
+        f"{s_recall:.4f}); batch {BATCH} {s_ms:.2f} ms (median of 3: {', '.join(f'{t:.2f}' for t in s_times)}), "
+        f"card busy {s_busy:.3f} ms ({s_busy / s_ms:.3f} of it); uploaded {s_upload} B a batch",
+        flush=True,
+    )
+    out["stream"]["breakdown"] = stream_breakdown(torch, idx, q_np, device)
+    print(f"paged numbers: {json.dumps(out)}", flush=True)
+    return out["host_rerank"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2951,6 +3169,335 @@ def phase_ann(torch, tmp, cfg, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# multivector MaxSim: a ColBERTv2-shaped late-interaction vectorset
+# ---------------------------------------------------------------------------
+
+MULTI_FULL = {
+    # ColBERTv2 (Santhanam et al., 2022): 128-d token vectors, queries of 32
+    # tokens, passages of up to 180 tokens; dot over normalised rows
+    "paragraphs": 50_000,
+    "tokens": (32, 180),  # token vectors a paragraph, drawn uniformly
+    "dim": 128,
+    "batch": 8,
+    "query_tokens": 32,
+    # the product: a knowledge box with a multivector vectorset
+    "kb_resources": 100,
+    "kb_paragraphs": 20,
+    "kb_tokens": (8, 32),
+    "finds": 16,
+}
+MULTI_DELETED = "m00012/"  # paragraphs 120..129
+MULTI_RTOL = 1e-4
+
+
+def multi_key(i: int) -> str:
+    # zero-padded resources sort in generation order: paragraph id == i
+    return f"m{i // 10:05d}/f/{i % 10}/0-10"
+
+
+def multi_id(key: str) -> int:
+    parts = key.split("/")
+    return int(parts[0][1:]) * 10 + int(parts[2])
+
+
+def maxsim_oracle(vecs, starts, q, qmask, chunk=2500):
+    """float64 MaxSim of every query ([B, M, D], rows where ``qmask``)
+    against every paragraph (its vectors ``vecs[starts[p]:starts[p+1]]``),
+    on the host: one product a chunk of paragraphs, ``np.maximum.reduceat``
+    over each paragraph's columns."""
+    b, m, d = q.shape
+    q64 = q.reshape(b * m, d).astype(np.float64)
+    n = starts.shape[0] - 1
+    out = np.empty((b, n))
+    for p0 in range(0, n, chunk):
+        p1 = min(n, p0 + chunk)
+        cols = vecs[starts[p0] : starts[p1]].astype(np.float64)
+        para = np.maximum.reduceat(q64 @ cols.T, starts[p0:p1] - starts[p0], axis=1).reshape(b, m, p1 - p0)
+        out[:, p0:p1] = np.where(qmask[:, :, None], para, 0.0).sum(axis=1)
+    return out
+
+
+def check_maxsim(hits, oracle, allowed, what) -> None:
+    """Each row: top-10 of the ``allowed`` paragraphs up to ties within
+    ``MULTI_RTOL`` of its 10th oracle score, every score within
+    ``MULTI_RTOL`` of the oracle's, none outside ``allowed``."""
+    for r, row in enumerate(hits):
+        want = np.where(allowed, oracle[r], -np.inf)
+        n = min(TOP_K, int(allowed.sum()))
+        check(len(row) == n, f"{what}: query {r} returned {len(row)} hits, not {n}")
+        ids = np.array([multi_id(h.key) for h in row])
+        check(bool(allowed[ids].all()), f"{what}: query {r} returned a paragraph outside the mask")
+        thr = np.sort(want)[::-1][n - 1]
+        exact = want[ids]
+        check(bool((exact >= thr - MULTI_RTOL * abs(thr)).all()), f"{what}: query {r} is not its top-{TOP_K} up to ties")
+        got = np.array([h.score for h in row])
+        check(bool(np.allclose(got, exact, rtol=MULTI_RTOL, atol=MULTI_RTOL)),
+              f"{what}: query {r} scores differ from the float64 MaxSim by {np.abs(got - exact).max()}")
+
+
+def multi_corpus(torch, cfg, device):
+    """Token counts uniform in ``cfg["tokens"]``, normalised random token
+    vectors (made on ``device`` from ``SEED``, kept on the host), paragraphs
+    1 and 2 copies of paragraph 0's block, 3 its first vectors but one (a
+    different block). Returns (vectors, starts)."""
+    rng = np.random.default_rng(SEED)
+    n, (lo, hi), d = cfg["paragraphs"], cfg["tokens"], cfg["dim"]
+    counts = rng.integers(lo, hi + 1, n)
+    counts[1:3] = counts[0]
+    counts[3] = counts[0] - 1
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    vecs = torch.randn(int(starts[-1]), d, generator=gen, device=device)
+    vecs = (vecs / vecs.norm(dim=-1, keepdim=True)).cpu().numpy()
+    for p in (1, 2):
+        vecs[starts[p] : starts[p + 1]] = vecs[starts[0] : starts[1]]
+    vecs[starts[3] : starts[4]] = vecs[starts[0] : starts[1] - 1]
+    return vecs, starts
+
+
+def phase_multi(torch, tmp, cfg, device="cuda"):
+    """MULTI cardinality (module docstring, part 11): (a) the index over
+    ``cfg["paragraphs"]`` ColBERTv2-shaped paragraphs in two segments plus a
+    deletion, searched by batches of MaxSim queries and single vectors,
+    held to a float64 MaxSim oracle on the host; (b) a knowledge box with a
+    multivector vectorset, ingested through the ``Processor`` and answering
+    ``/find`` with a single query vector. Returns its numbers."""
+    from nucliadb_tpu_torch.index.vector import (
+        Elem, LabelAtom, Seq, SimpleOpenIndex, VectorConfig, VectorSearcher, VectorSearchRequest, create_segment,
+    )
+    from nucliadb_tpu_torch.ops import binary_scan, slot_scan
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    n, d, bsz, m = cfg["paragraphs"], cfg["dim"], cfg["batch"], cfg["query_tokens"]
+    t = time.perf_counter()
+    vecs, starts = multi_corpus(torch, cfg, device)
+    mcfg = VectorConfig(dimension=d, similarity="dot", cardinality="multi")
+    segs = []
+    for s, (lo, hi) in enumerate(((0, n // 2), (n // 2, n))):
+        elems = [Elem(key=multi_key(i), vectors=vecs[starts[i] : starts[i + 1]],
+                      labels=["/l/tenth"] if i % 10 == 0 else []) for i in range(lo, hi)]
+        segs.append((create_segment(f"{tmp}/mv{s}", elems, mcfg, device=device), Seq(s + 1)))
+        del elems
+    oi = SimpleOpenIndex(segment_list=segs, deletion_list=[(MULTI_DELETED, Seq(3))])
+    t_write = time.perf_counter() - t
+    t = time.perf_counter()
+    searcher = VectorSearcher(mcfg, oi, device=device)
+    sync()
+    t_open = time.perf_counter() - t
+    idx = searcher.index
+    arena_bytes = idx.vectors.numel() * idx.vectors.element_size()
+    check(idx.multi and idx.codes is None and idx.vectors.device.type == device,
+          f"the MULTI index is not a device slot arena ({idx.vectors.device})")
+    check(idx.keys[:3] == [multi_key(0), multi_key(1), multi_key(2)], "paragraphs out of generation order")
+
+    # queries: query j is paragraph pick[j]'s first tokens plus noise; the
+    # single vectors are each query's first token
+    rng = np.random.default_rng(SEED + 1)
+    pick = np.concatenate([[0], rng.choice(np.arange(200, n), bsz - 1, replace=False)])
+    noise = 0.3 / np.sqrt(d) * rng.standard_normal((bsz, m, d))  # norm 0.3 a token
+    q = np.stack([vecs[starts[p] : starts[p] + m] for p in pick]) + noise
+    q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+    q[-1, -2:] = 0.0  # the last query has two padding rows
+    single = np.ascontiguousarray(q[:, 0])
+    alive = np.ones(n, bool)
+    alive[120:130] = False
+    kept = alive.copy()
+    kept[1:3] = False  # the dedup keeps 0, the first of the planted block
+    tenth = kept & (np.arange(n) % 10 == 0)
+    t = time.perf_counter()
+    oracle = maxsim_oracle(vecs, starts, q, np.abs(q).sum(-1) > 0)
+    oracle1 = maxsim_oracle(vecs, starts, single[:, None, :], np.ones((bsz, 1), bool))
+    t_oracle = time.perf_counter() - t
+
+    # ---- the main path, counted -----------------------------------------
+    reset_launches(slot_scan, binary_scan)
+    batch_hits = searcher.search(VectorSearchRequest(vectors=q, top_k=TOP_K))
+    single_hits = searcher.search(VectorSearchRequest(vectors=single, top_k=TOP_K))
+    filt_hits = searcher.search(VectorSearchRequest(vectors=q, top_k=TOP_K, filter=LabelAtom("/l/tenth")))
+    dup_hits = searcher.search(VectorSearchRequest(vectors=q[:1], top_k=TOP_K, with_duplicates=True))
+    floor = float(np.float32(batch_hits[1][4].score))
+    floor_hits = searcher.search(VectorSearchRequest(vectors=q, top_k=TOP_K, min_score=floor))
+    launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+    # ----------------------------------------------------------------------
+    check(not any(launches.values()), f"MaxSim launched a slot scan: {launches}")
+    check_maxsim(batch_hits, oracle, kept, "MaxSim batch")
+    check_maxsim(single_hits, oracle1, kept, "MaxSim single vectors")
+    check_maxsim(filt_hits, oracle, tenth, "MaxSim filtered")
+    check({0, 1, 2} <= {multi_id(h.key) for h in dup_hits[0]}, "with_duplicates=True lost a copy of paragraph 0")
+    check(multi_id(batch_hits[0][0].key) == 0 and not {1, 2} & {multi_id(h.key) for h in batch_hits[0]},
+          "the dedup did not keep paragraph 0 alone of its block")
+    for got, full in zip(floor_hits, batch_hits):
+        check([h.key for h in got] == [h.key for h in full if h.score >= floor], "min_score: not the floored result")
+    check(not any(h.key.startswith(MULTI_DELETED) for hs in (batch_hits, single_hits, filt_hits, dup_hits)
+                  for row in hs for h in row), "a deleted paragraph came back")
+
+    def batch():
+        return searcher.search(VectorSearchRequest(vectors=q, top_k=TOP_K))
+
+    ms, times = median_ms(batch)
+    ms1, _ = median_ms(lambda: searcher.search(VectorSearchRequest(vectors=single[0], top_k=TOP_K)))
+    peak, busy = None, None
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        batch()
+        peak = torch.cuda.max_memory_allocated()
+        busy = device_busy_ms(torch, batch)
+    out = {"open_s": t_open, "write_s": t_write, "oracle_s": t_oracle, "p_pad": idx.p_pad, "m_max": idx.m_max,
+           "vectors": int(starts[-1]), "arena_bytes": arena_bytes, "batch_ms": ms, "single_ms": ms1,
+           "busy_ms": busy, "peak_bytes": peak}
+    print(
+        f"multi index: {n} paragraphs x {cfg['tokens'][0]}-{cfg['tokens'][1]} tokens ({int(starts[-1])} vectors) "
+        f"x {d} on {device}, 2 segments + 1 deletion, p_pad {idx.p_pad}, m_max {idx.m_max}, arena {arena_bytes} B; "
+        f"write {t_write:.1f}s, open {t_open:.1f}s, float64 oracle {t_oracle:.1f}s; batch {bsz} x {m} top-{TOP_K} "
+        f"{ms:.2f} ms (median of 5: {', '.join(f'{t:.2f}' for t in times)}), one single vector {ms1:.2f} ms; "
+        f"card busy {busy if busy is None else round(busy, 3)} ms a batch "
+        f"({None if busy is None else round(busy / ms, 3)} of it); peak {peak} B "
+        f"(arena resident {None if peak is None else base}); launches {launches}; every result the float64 "
+        f"MaxSim's up to ties within {MULTI_RTOL}",
+        flush=True,
+    )
+    out["breakdown"] = multi_breakdown(torch, idx, q, device)
+    del searcher, idx
+    out["find"] = multi_find(torch, tmp, cfg, device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"multi numbers: {json.dumps(out)}", flush=True)
+    return out
+
+
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (TF32 is off)
+
+
+def multi_breakdown(torch, idx, q, device) -> dict:
+    """MaxSim's layers at one batch (CUDA events, mean of 3 after a warm-up):
+    ``product`` the [B*M, D] x [P*m_max, D] f32 product, ``slot_mask`` the
+    in-place NEG_INF fill of the slots past ``m_count``, ``slot_max`` the
+    max over each paragraph's slots, ``whole`` and ``whole_dedup``
+    ``_maxsim_core`` without and with the dedup; ``bound_ms`` the larger of
+    the product's operations over the f32 peak and the arena's bytes over
+    HBM."""
+    from nucliadb_tpu_torch.index.vector import device as dv
+    from nucliadb_tpu_torch.ops.distance import scores_matmul
+    from nucliadb_tpu_torch.ops.topk import NEG_INF
+
+    b, m, d = q.shape
+    qt = torch.from_numpy(q).to(device)
+    flat_q = qt.reshape(b * m, d)
+    qmask = torch.from_numpy(np.abs(q).sum(-1) > 0).to(device)
+    mask = torch.from_numpy(idx.base_mask()).to(device)
+    floor = float(np.float32(NEG_INF))
+    timer = cuda_ms if device == "cuda" else host_ms
+    out = {"product": timer(lambda: scores_matmul(flat_q, idx.vectors), 3)}
+    slots = scores_matmul(flat_q, idx.vectors).view(b, m, idx.p_pad, idx.m_max)
+    invalid = ~(torch.arange(idx.m_max, device=slots.device) < idx.m_count[:, None])
+    out["slot_mask"] = timer(lambda: slots.masked_fill_(invalid, NEG_INF), 3)
+    out["slot_max"] = timer(lambda: slots.amax(dim=-1), 3)
+    del slots
+    for name, dedup in (("whole", False), ("whole_dedup", True)):
+        out[name] = timer(lambda: dv._maxsim_core(idx.vectors, idx.m_count, qt, qmask, mask, floor, TOP_K,
+                                                  idx.m_max, "dot", dedup), 3)
+    ops = 2.0 * b * m * idx.vectors.shape[0] * d
+    out["bound_ms"] = max(ops / F32_OPS_PER_S, idx.vectors.numel() * idx.vectors.element_size() / HBM_BYTES_PER_S) * 1e3
+    print(f"breakdown multi (ms, batch {b} x {m}): {json.dumps({k: round(v, 3) for k, v in out.items()})}",
+          flush=True)
+    return out
+
+
+def multi_find(torch, tmp, cfg, device):
+    """A knowledge box whose vectorset ``mv`` is multivector: ``kb_resources``
+    resources of ``kb_paragraphs`` paragraphs, each with ``kb_tokens``
+    sentence embeddings, through ``Processor.create_resource``; merge
+    rounds, sync; ``finds`` semantic /find requests with one query vector,
+    each semantic hit's score the float64 MaxSim (M = 1) of its paragraph
+    and the leg its top-10 up to ties."""
+    from nucliadb_tpu_torch.common.kb import KnowledgeBoxManager
+    from nucliadb_tpu_torch.ingest import Processor
+    from nucliadb_tpu_torch.maindb import Driver
+    from nucliadb_tpu_torch.models.api import (
+        CreateResourcePayload, FindRequest, KnowledgeBoxConfig, SearchFeature, SentenceEmbedding, TextFieldPayload,
+        VectorSetSpec,
+    )
+    from nucliadb_tpu_torch.search import SearchService
+    from nucliadb_tpu_torch.services import EmbeddedNode
+
+    rng = np.random.default_rng(SEED + 2)
+    d, R, P, (lo, hi) = cfg["dim"], cfg["kb_resources"], cfg["kb_paragraphs"], cfg["kb_tokens"]
+    driver = Driver(f"{tmp}/maindb.db")
+    node = EmbeddedNode(f"{tmp}/node", device=device)
+    kbs = KnowledgeBoxManager(driver, node)
+    processor = Processor(driver, node, kbs)
+    search = SearchService(node, kbs, processor)
+    kbid = kbs.create(KnowledgeBoxConfig(slug="colbert", vectorsets={"mv": VectorSetSpec(dimension=d, multivector=True)}))
+    blocks = {}  # (rid, start, end) -> the paragraph's token vectors
+    t = time.perf_counter()
+    for r in range(R):
+        rid = f"{r:032x}"
+        texts = [f"resource {r} paragraph {j}" + " late interaction" * int(rng.integers(1, 4)) for j in range(P)]
+        embeddings, start = [], 0
+        for text in texts:
+            end = start + len(text)
+            v = rng.standard_normal((int(rng.integers(lo, hi + 1)), d)).astype(np.float32)
+            v /= np.linalg.norm(v, axis=-1, keepdims=True)
+            blocks[(rid, start, end)] = v
+            embeddings += [SentenceEmbedding(start=start, end=end, vector=row.tolist()) for row in v]
+            start = end + 2
+        payload = CreateResourcePayload(title=f"colbert {r}", texts={"text1": TextFieldPayload(body="\n\n".join(texts))},
+                                        embeddings={"mv": {"text1": embeddings}})
+        processor.create_resource(kbid, payload, rid=rid)
+    t_ingest = time.perf_counter() - t
+    t, rounds = time.perf_counter(), 0
+    while True:
+        stats = node.tick_background()
+        rounds += 1
+        if stats["jobs_enqueued"] == 0 and stats["merged"] == 0:
+            break
+    t_merge = time.perf_counter() - t
+    (sid,) = kbs.get_shards(kbid).shards
+    node.wait_for_sync()
+    index = node.searcher.shard(sid).vectors["mv"].index
+    check(index.multi and index.n_para == R * P, f"the knowledge box's MULTI index holds {index.n_para} paragraphs")
+    keys = list(blocks)
+    cols = np.concatenate([blocks[k] for k in keys])
+    starts = np.concatenate([[0], np.cumsum([blocks[k].shape[0] for k in keys])])
+    queries = rng.standard_normal((cfg["finds"], d)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=-1, keepdims=True)
+    oracle = maxsim_oracle(cols, starts, queries[:, None, :], np.ones((cfg["finds"], 1), bool))
+    position = {k: i for i, k in enumerate(keys)}
+    seen = find_capture(node)
+    times = []
+    for i, qv in enumerate(queries):
+        req = FindRequest(query="", vector=qv.tolist(), vectorset="mv", features=[SearchFeature.SEMANTIC], top_k=TOP_K)
+        t = time.perf_counter()
+        res = search.find(kbid, req)
+        times.append((time.perf_counter() - t) * 1e3)
+        (resp,) = seen[-1]
+        hits = resp.vector
+        check(len(hits) >= TOP_K and res.best_matches, f"/find {i}: {len(hits)} semantic hits")
+        ids = []
+        for h in hits:  # a MULTI hit's key is its paragraph's: "{rid}/t/text1/{start}-{end}"
+            rid, _, _, span = h.key.split("/")
+            start, end = map(int, span.split("-"))
+            ids.append(position[(rid, start, end)])
+        exact = oracle[i, ids]
+        thr = np.sort(oracle[i])[::-1][len(ids) - 1]
+        check(bool(np.allclose([h.score for h in hits], exact, rtol=MULTI_RTOL, atol=MULTI_RTOL)),
+              f"/find {i}: a semantic score is not its paragraph's MaxSim")
+        check(bool((exact >= thr - MULTI_RTOL * abs(thr)).all()), f"/find {i}: the semantic leg is not its top-k")
+    out = {"resources": R, "paragraphs": R * P, "ingest_s": t_ingest, "merge_s": t_merge, "rounds": rounds,
+           "m_max": index.m_max, "find_p50_ms": float(np.median(times))}
+    print(
+        f"multi find: {R} resources x {P} paragraphs x {lo}-{hi} token vectors (dim {d}) through the Processor on "
+        f"{device}: ingest {t_ingest:.1f}s, {rounds} background rounds {t_merge:.1f}s, m_max {index.m_max}; "
+        f"{cfg['finds']} semantic /find with one query vector, each hit its paragraph's float64 MaxSim within "
+        f"{MULTI_RTOL}, p50 {out['find_p50_ms']:.1f} ms",
+        flush=True,
+    )
+    return out
+
+
 def child_phase_start(tmp, name: str, call: str, result: str):
     """``chip_smoke.<call>`` in a child interpreter, so that its host-bound
     work overlaps the parent's phase (the two share nothing: each has its
@@ -3065,6 +3612,8 @@ def main() -> None:
         searcher, binary_launches = phase_binary_slice(torch, slot_scan, binary_scan, corpus)
         phase_binary_breakdown(torch, searcher, corpus.q_np)
         del searcher
+        torch.cuda.empty_cache()
+        paged_launches = phase_paged(torch, slot_scan, binary_scan, corpus)
         corpus.free(torch)
     seconds["slices"], t = time.perf_counter() - t, time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3073,27 +3622,33 @@ def main() -> None:
     with (
         tempfile.TemporaryDirectory() as node_tmp,
         tempfile.TemporaryDirectory() as ann_tmp,
+        tempfile.TemporaryDirectory() as multi_tmp,
         tempfile.TemporaryDirectory() as tmp,
     ):
-        # the node and ANN phases run beside the /find phase, each in its
-        # own interpreter (their lines print after the /find phase's), then
-        # the HTTP phase runs alone
+        # the node, ANN and multivector phases run beside the /find phase,
+        # each in its own interpreter (their lines print after the /find
+        # phase's), then the HTTP phase runs alone
         node_proc, node_log = node_phase_start(node_tmp)
         ann_proc, ann_log = child_phase_start(ann_tmp, "ann", f"phase_ann(torch, {ann_tmp!r}, chip_smoke.ANN_FULL)",
                                               "out")
+        multi_proc, multi_log = child_phase_start(
+            multi_tmp, "multi", f"phase_multi(torch, {multi_tmp!r}, chip_smoke.MULTI_FULL)", "out"
+        )
         try:
             find = phase_find(torch, tmp, FIND_FULL)
         except BaseException:
-            for proc in (node_proc, ann_proc):
+            for proc in (node_proc, ann_proc, multi_proc):
                 proc.kill()
                 proc.wait()
             raise
         node = node_phase_wait(node_proc, node_log)
         ann = child_phase_wait(ann_proc, ann_log, "ann")
-        seconds["node and ann beside find"], t = time.perf_counter() - t, time.perf_counter()
+        multi = child_phase_wait(multi_proc, multi_log, "multi")
+        seconds["node, ann and multi beside find"], t = time.perf_counter() - t, time.perf_counter()
         http = phase_http(torch, tmp, find, HTTP_FULL)  # over phase_find's knowledge box
     seconds["http"] = time.perf_counter() - t
     seconds["ann (in its child)"] = ann["phase_s"]
+    seconds["multi (in its child)"] = multi["phase_s"]
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}", flush=True)
     print(
         "note: int8_scan_slots_resident has no serving route in either package; its kernel is the "
@@ -3126,6 +3681,9 @@ def main() -> None:
                "find_launches": find.default.get(mode, 0) + find.device.get(mode, 0),
                # and on the HTTP phase's counted path (both keyword routes)
                "http_launches": http.default.get(mode, 0) + http.device.get(mode, 0),
+               # the host_rerank tier's counted path (phase_paged); MaxSim
+               # (phase_multi) launches no slot scan
+               "paged_launches": paged_launches if mode == "top2" else 0,
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                # no single PyTorch call computes a slot table
                "library_ms": None, "share": bound_ms / k_ms}

@@ -5,10 +5,10 @@ shard indexer and the merge worker call, and the searcher the shard
 searcher calls for the semantic leg. The compute runs through the port's
 device index (``device.py``) on an explicit ``device``: the exact tiers,
 int8 codes (with or without the ``pallas`` flag), binary codes (with or
-without it), and the ``ivf`` and ``hnsw`` strategies, whose centroids and
-graph the indexer builds on its ``device``. MULTI cardinality and arena
-paging are not ported yet and raise ``NotImplementedError``: MULTI when a
-resource is indexed, paging when a searcher opens.
+without it), the ``ivf`` and ``hnsw`` strategies, whose centroids and
+graph the indexer builds on its ``device``, MULTI cardinality (MaxSim over
+one elem per paragraph holding its sentence vectors) and the paged tiers
+an ``NDBTPU_VECTOR_ARENA_BUDGET`` selects.
 """
 
 from __future__ import annotations
@@ -64,10 +64,6 @@ class VectorIndexer:
     config's graph or centroids are built on ``device``."""
 
     def __init__(self, config: VectorConfig, *, device: "str | torch.device" = "cuda"):
-        if config.cardinality == VectorCardinality.MULTI:
-            raise NotImplementedError(
-                "MULTI cardinality (MaxSim) is not ported yet (ROADMAP.md, Queue 1 item 7)"
-            )
         self.config = config
         self.device = device
 
@@ -91,6 +87,13 @@ class VectorIndexer:
                         "page_number": para.position.page_number if para.position else 0,
                     },
                 }
+                if self.config.cardinality == VectorCardinality.MULTI:
+                    # one elem per paragraph, keyed by it: its sentence vectors
+                    vecs = np.stack(
+                        [np.asarray(s.vector, np.float32) for s in sentences.values()]
+                    )
+                    elems.append(Elem(key=pid, vectors=vecs, labels=labels, metadata=meta))
+                    continue
                 for vkey, sentence in sentences.items():
                     elems.append(
                         Elem(
@@ -133,8 +136,9 @@ class VectorIndexer:
 class VectorSearchRequest:
     """One vector query against an index.
 
-    ``vectors`` is [D] or [B, D]. ``filter`` combines label filters;
-    ``field_filter`` is the prefilter's FieldId handoff.
+    ``vectors`` is [D], [B, D] or [B, M, D] (multivector MaxSim).
+    ``filter`` combines label filters; ``field_filter`` is the prefilter's
+    FieldId handoff.
     """
 
     vectors: np.ndarray
@@ -221,6 +225,8 @@ class VectorSearcher:
                 f"query vector dimension {q.shape[-1]} does not match the "
                 f"vectorset dimension {self.config.dimension}"
             )
+        if q.ndim == 3 and self.config.cardinality != VectorCardinality.MULTI:
+            raise ValueError("multivector query against a single-vector index")
         mask = self._build_mask(request)
         scores, ids = self.index.search(
             q, request.top_k, para_mask=mask, min_score=request.min_score,

@@ -1,14 +1,28 @@
 """Device-resident consolidated vector index and its search routes.
 
-Counterpart of ``nucliadb_tpu/index/vector/device.py`` for SINGLE
-cardinality with a resident arena. All open segments of an index become
-one padded arena ``vectors [p_pad, D]`` on ``device`` (``bucket()``
-padding, at least one pad row); paragraph ids are arena rows.
+Counterpart of ``nucliadb_tpu/index/vector/device.py``. All open segments
+of an index become one padded arena on ``device`` (``bucket()`` padding, at
+least one pad paragraph):
+
+- SINGLE cardinality: ``vectors [p_pad, D]``; paragraph ids are arena rows;
+- MULTI cardinality (multivector MaxSim): uniform slots ``vectors
+  [p_pad * m_max, D]``, slot ``p * m_max + j`` the j-th vector of paragraph
+  p (zero-padded), ``m_count [p_pad]`` the vectors of each paragraph.
 
 Routes of ``search``, as in the JAX package:
 
-- host exact tier: a small f32 arena (``p_pad * D <= HOST_SCAN_ELEMS``)
-  without codes is scanned with numpy on the host;
+- host exact tier: a small f32 SINGLE arena (``p_pad * D <=
+  HOST_SCAN_ELEMS``) without codes is scanned with numpy on the host;
+- ``_maxsim_core`` for a MULTI index: a 3-D query ``[B, M, D]`` (a 2-D
+  one is M = 1) against every slot in one product, the max over each
+  paragraph's slots, the sum over the query's non-zero rows, a masked
+  top-k (+ the dedup over whole slot blocks). MULTI builds no codes, no
+  IVF layout and no graph;
+- ``_search_paged`` when the arena exceeds ``NDBTPU_VECTOR_ARENA_BUDGET``
+  bytes (SINGLE only): ``host_rerank`` keeps int8 codes on the device
+  (candidates from ``_int8_candidates``) and the f32 rows in host memory
+  for ``_host_rerank_cut``; ``stream`` keeps nothing on the device and
+  scans the host arena in uploaded chunks (``_stream_chunk_topk``);
 - ``_search_exact``: exact f32 scan + masked top-k (+ the Fssc dedup);
 - ``_search_int8`` above ``EXACT_SCAN_THRESHOLD`` rows: int8 candidates,
   then the exact rerank and cut. Candidates come from the top-2 slot scan
@@ -31,12 +45,9 @@ Routes of ``search``, as in the JAX package:
   Both over-fetch ``2k + 8`` under ``with_duplicates=False`` and cut with
   ``_exact_dedup_cut``.
 
-The routes and their gates are the JAX package's (``device.py:589-632``);
+The routes and their gates are the JAX package's (``device.py:523-632``);
 each slot scan is a CUDA kernel for tensors on the card and its plain
 version on the CPU.
-
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, Queue 1):
-MULTI cardinality and ``NDBTPU_VECTOR_ARENA_BUDGET`` paging.
 
 Unlike JAX arrays, torch tensors are updated in place: an incremental
 refresh writes the new rows into the previous index's arena (see
@@ -75,14 +86,6 @@ class VectorHit:
     metadata: dict
 
 
-def _check_ported(config: VectorConfig) -> None:
-    where = "is not ported yet (ROADMAP.md, Queue 1)"
-    if config.cardinality == VectorCardinality.MULTI:
-        raise NotImplementedError(f"MULTI cardinality (MaxSim) {where}")
-    if int(os.environ.get("NDBTPU_VECTOR_ARENA_BUDGET", "0") or 0) > 0:
-        raise NotImplementedError(f"NDBTPU_VECTOR_ARENA_BUDGET paging {where}")
-
-
 def _store_dtype(config: VectorConfig) -> torch.dtype:
     # flag "bf16": the rerank arena in bfloat16 (half the device memory);
     # scores still accumulate in f32
@@ -101,10 +104,10 @@ class DeviceVectorIndex:
         *,
         device: "str | torch.device" = "cuda",
     ):
-        _check_ported(config)
         self.device = resolve_device(device)
         thread_stream(self.device)
         self.config = config
+        self.multi = config.cardinality == VectorCardinality.MULTI
         dim = config.dimension
 
         keys: list[str] = []
@@ -114,6 +117,9 @@ class DeviceVectorIndex:
         para_seg_chunks: list[np.ndarray] = []
         alive_chunks: list[np.ndarray] = []
         vec_chunks: list[np.ndarray] = []
+        # multi: each segment's vectors, the paragraph of each and its count
+        vec_para_chunks: list[np.ndarray] = []
+        count_chunks: list[np.ndarray] = []
         self.seg_bounds: list[tuple[int, int]] = []
         para_offset = 0
         for seg_idx, (seg, seq) in enumerate(segments):
@@ -125,7 +131,11 @@ class DeviceVectorIndex:
             para_seg_chunks.append(np.full(seg.n_paragraphs, seg_idx, dtype=np.int32))
             alive_chunks.append(alive_mask(seg, seq, deletions))
             sv = np.asarray(seg.vectors, dtype=np.float32)
-            if sv.shape[0] != seg.n_paragraphs:
+            if self.multi:
+                vp = np.asarray(seg.vec_para, dtype=np.int64)
+                vec_para_chunks.append(vp + para_offset)
+                count_chunks.append(np.bincount(vp, minlength=seg.n_paragraphs).astype(np.int32))
+            elif sv.shape[0] != seg.n_paragraphs:
                 raise ValueError("single-cardinality index with multi-vector segment")
             vec_chunks.append(sv)
             self.seg_bounds.append((para_offset, para_offset + seg.n_paragraphs))
@@ -149,8 +159,25 @@ class DeviceVectorIndex:
         self.alive = np.concatenate(alive_chunks) if alive_chunks else np.zeros(0, bool)
         # reserve >=1 padding slot so the pad paragraph is always maskable
         self.p_pad = bucket(self.n_para + 1)
-        flat = np.concatenate(vec_chunks) if vec_chunks else np.zeros((0, dim), np.float32)
         store_dtype = _store_dtype(config)
+        self._base_mask_dev: torch.Tensor | None = None
+        self._host_arena: np.ndarray | None = None
+        self.paging: str | None = None
+        self.vectors_host: np.ndarray | None = None
+        self.codes: quant.Int8Codes | quant.BinaryCodes | None = None
+        self.ivf: ivf.DeviceIVF | None = None
+        self.graph: hnsw.DeviceHnsw | None = None
+
+        if self.multi:
+            self._build_multi(vec_chunks, vec_para_chunks, count_chunks, store_dtype)
+            stream_wait(self.device)  # other threads' streams read the arena
+            return
+        self.m_max = 1
+        self.m_count = None
+        flat = np.concatenate(vec_chunks) if vec_chunks else np.zeros((0, dim), np.float32)
+        if self._page(flat, store_dtype):
+            stream_wait(self.device)  # other threads' streams read the codes
+            return
 
         delta_dev = None
         if self._can_extend(prev, store_dtype):
@@ -176,10 +203,8 @@ class DeviceVectorIndex:
             arena = np.zeros((self.p_pad, dim), np.float32)
             arena[: self.n_para] = flat
             self.vectors = torch.from_numpy(arena).to(self.device, store_dtype)
-        self._base_mask_dev: torch.Tensor | None = None
         self._set_host_arena(flat)
 
-        self.codes: quant.Int8Codes | quant.BinaryCodes | None = None
         quantized = self.n_para > EXACT_SCAN_THRESHOLD
         if quantized and config.quantization == Quantization.INT8:
             if delta_dev is not None and isinstance(prev.codes, quant.Int8Codes):
@@ -197,7 +222,6 @@ class DeviceVectorIndex:
 
         # flag "ivf": reuse the biggest segment's persisted centroids when it
         # holds at least a quarter of the rows (one assignment pass)
-        self.ivf: ivf.DeviceIVF | None = None
         if "ivf" in config.flags and self.n_para > 0:
             best = max(
                 (s for s, _ in segments if s.ivf_centroids is not None),
@@ -211,7 +235,6 @@ class DeviceVectorIndex:
 
         # flag "hnsw": the segments' persisted graphs stitched, else one
         # graph built over the arena
-        self.graph: hnsw.DeviceHnsw | None = None
         if "hnsw" in config.flags and self.n_para > 0:
             stitched = self._stitch_segment_graphs(segments)
             if stitched is not None:
@@ -225,6 +248,71 @@ class DeviceVectorIndex:
         # delta included) and the strategies' state once this index is
         # published
         stream_wait(self.device)
+
+    def _build_multi(self, vec_chunks, vec_para_chunks, count_chunks, store_dtype) -> None:
+        """The uniform slot arena ``[p_pad * m_max, D]`` on the device, with
+        ``m_max = bucket(most vectors of a paragraph, minimum=1)``, and
+        ``m_count [p_pad]`` i32. Only the segments' vectors are uploaded;
+        each lands in its slot on the device."""
+        counts = np.concatenate(count_chunks) if count_chunks else np.zeros(0, np.int32)
+        self.m_max = bucket(int(counts.max()) if counts.size else 1, minimum=1)
+        dim = self.config.dimension
+        self.vectors = torch.zeros((self.p_pad * self.m_max, dim), dtype=store_dtype, device=self.device)
+        for sv, vp in zip(vec_chunks, vec_para_chunks):
+            if not sv.shape[0]:
+                continue
+            # vec_para is sorted: a vector's slot is its rank within its paragraph
+            first = np.searchsorted(vp, vp, side="left")
+            slots = vp * self.m_max + (np.arange(vp.shape[0]) - first)
+            rows = torch.from_numpy(slots).to(self.device)
+            # torch.tensor copies: a segment's columns are read-only maps
+            self.vectors[rows] = torch.tensor(sv, dtype=store_dtype, device=self.device)
+        m_count = np.zeros(self.p_pad, np.int32)
+        m_count[: self.n_para] = counts
+        self.m_count = torch.from_numpy(m_count).to(self.device)
+
+    def _page(self, flat: np.ndarray, store_dtype) -> bool:
+        """The beyond-HBM tiers (the reference's mmap'd stores and segment
+        paging, nidx_vector/src/data_store.rs): when the arena and its codes
+        exceed the budget, the f32 arena stays in host memory
+        (``vectors_host``) and ``paging`` names the tier:
+
+        - ``host_rerank`` (int8 quantization, the codes within the budget):
+          int8 codes on the device, encoded on the host (``_host_int8_encode``)
+          and uploaded; only the candidates' f32 rows are read per query;
+        - ``stream``: nothing resident; a query scans the host arena in
+          chunks of ``chunk_rows``, the largest power of two whose f32 rows
+          fit the budget.
+
+        True when the index pages (no IVF layout, no graph: it opens as the
+        JAX package's does, ``device.py:198-249``)."""
+        # NDBTPU_VECTOR_ARENA_BUDGET: the bytes of device memory one index may
+        # hold (0 or unset: no limit)
+        budget = int(os.environ.get("NDBTPU_VECTOR_ARENA_BUDGET", "0") or 0)
+        if budget <= 0:
+            return False
+        dim = self.config.dimension
+        itemsize = 2 if store_dtype == torch.bfloat16 else 4
+        vec_bytes = self.p_pad * dim * itemsize
+        code_bytes = self.p_pad * (dim + 4)  # int8 codes + f32 scale
+        if vec_bytes + code_bytes <= budget:
+            return False
+        arena_np = np.zeros((self.p_pad, dim), np.float32)
+        arena_np[: self.n_para] = flat
+        self.vectors_host = arena_np
+        self.vectors = None
+        if self.config.quantization == Quantization.INT8 and code_bytes <= budget:
+            self.paging = "host_rerank"
+            codes_np, scale_np = _host_int8_encode(arena_np)
+            self.codes = quant.Int8Codes(
+                codes=torch.from_numpy(codes_np).to(self.device),
+                scale=torch.from_numpy(scale_np).to(self.device),
+            )
+        else:
+            self.paging = "stream"
+            rows = max(budget // (dim * 4), 8)
+            self.chunk_rows = 1 << (rows.bit_length() - 1)
+        return True
 
     def _device_graph(self, adj: np.ndarray, entry_ids: np.ndarray, n_components: int) -> hnsw.DeviceHnsw:
         """The [n_para] graph padded to the arena's rows, on the device."""
@@ -286,10 +374,14 @@ class DeviceVectorIndex:
     ) -> "DeviceVectorIndex":
         """An index holding given state instead of building it from segments.
 
-        ``arrays``: ``vectors [p_pad, D]``, ``alive [n_para] bool``,
-        ``para_seg [n_para] i32`` and, when the index has int8 codes,
-        ``codes [p_pad, D] i8`` and ``scale [p_pad] f32``, or, when it has
-        binary codes, ``codes_t [D/32, p_pad] u32`` (or its int32 view),
+        ``arrays``: ``alive [n_para] bool``, ``para_seg [n_para] i32`` and
+        the arena ``vectors [p_pad, D]``, or for a MULTI config ``vectors
+        [p_pad * m_max, D]``, ``m_count [p_pad] i32`` and ``m_max``, or for
+        a paged index ``paging`` (``"host_rerank"`` or ``"stream"``) and the
+        host arena ``vectors_host [p_pad, D]``, with ``chunk_rows`` on the
+        ``stream`` tier. When the index has int8 codes (``host_rerank``
+        too): ``codes [p_pad, D] i8`` and ``scale [p_pad] f32``; binary
+        codes: ``codes_t [D/32, p_pad] u32`` (or its int32 view),
         ``bin_scale``, ``resid`` and ``popcnt`` (``[p_pad] f32``); with a
         graph, ``hnsw_adj [p_pad, m]``, ``hnsw_entry_ids [E]``,
         ``hnsw_n_segments`` and (stitched) ``hnsw_seg_of [p_pad]``; with an
@@ -298,11 +390,11 @@ class DeviceVectorIndex:
         ``ivf_block``; for example the ``np.asarray`` of a JAX
         ``DeviceVectorIndex``'s buffers. Such an index has no segment
         identity, so it is never extended in place."""
-        _check_ported(config)
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         thread_stream(self.device)
         self.config = config
+        self.multi = config.cardinality == VectorCardinality.MULTI
         self.keys = list(keys)
         self.para_meta = list(para_meta)
         self.labels = {k: np.asarray(v, np.int32) for k, v in labels.items()}
@@ -311,16 +403,33 @@ class DeviceVectorIndex:
         self.n_para = len(self.keys)
         self.alive = np.asarray(arrays["alive"], dtype=bool)
         self.para_seg = np.asarray(arrays["para_seg"], dtype=np.int32)
-        vectors = np.asarray(arrays["vectors"], dtype=np.float32)
-        self.p_pad = vectors.shape[0]
-        if self.p_pad != bucket(self.n_para + 1) or vectors.shape[1] != config.dimension:
+        self.paging = arrays.get("paging")
+        self.m_max = int(arrays.get("m_max", 1))
+        vectors = np.asarray(arrays["vectors_host" if self.paging else "vectors"], dtype=np.float32)
+        self.p_pad = vectors.shape[0] // self.m_max
+        if (
+            self.p_pad != bucket(self.n_para + 1)
+            or vectors.shape != (self.p_pad * self.m_max, config.dimension)
+        ):
             raise ValueError(f"arena shape {vectors.shape} does not fit {self.n_para} rows")
         self._seg_sig = None
         self._extended = False
-        # torch.tensor copies: the given arrays may be read-only views
-        self.vectors = torch.tensor(vectors, dtype=_store_dtype(config), device=self.device)
         self._base_mask_dev = None
-        self._set_host_arena(vectors[: self.n_para])
+        self._host_arena = None
+        self.vectors_host = None
+        self.vectors = None
+        self.m_count = None
+        if self.paging:
+            self.vectors_host = np.array(vectors)  # a copy: the given arrays may be read-only
+            if self.paging == "stream":
+                self.chunk_rows = int(arrays["chunk_rows"])
+        else:
+            # torch.tensor copies: the given arrays may be read-only views
+            self.vectors = torch.tensor(vectors, dtype=_store_dtype(config), device=self.device)
+            if self.multi:
+                self.m_count = torch.tensor(arrays["m_count"], dtype=torch.int32, device=self.device)
+            else:
+                self._set_host_arena(vectors[: self.n_para])
         self.codes = None
 
         def f32(key):
@@ -365,10 +474,11 @@ class DeviceVectorIndex:
         return self
 
     def _set_host_arena(self, flat: np.ndarray) -> None:
-        """Host numpy exact tier: a corpus this small is bounded by per-call
-        device costs, not FLOPs. Disabled for bf16 arenas (bf16 rounding
-        changes scores) and by NDBTPU_VECTOR_HOST_SCAN_ELEMS=0."""
-        self._host_arena: np.ndarray | None = None
+        """Host numpy exact tier (SINGLE, resident): a corpus this small is
+        bounded by per-call device costs, not FLOPs. Disabled for bf16
+        arenas (bf16 rounding changes scores) and by
+        NDBTPU_VECTOR_HOST_SCAN_ELEMS=0."""
+        self._host_arena = None
         dim = self.config.dimension
         if _store_dtype(self.config) == torch.float32 and self.p_pad * dim <= HOST_SCAN_ELEMS:
             host_arena = np.zeros((self.p_pad, dim), np.float32)
@@ -377,11 +487,12 @@ class DeviceVectorIndex:
 
     def host_resident(self) -> bool:
         """True when ``search`` serves from the host exact tier and so
-        launches nothing on the device: a host arena, and no codes, IVF
-        layout or graph. (The JAX package also rules out paged arenas,
-        which this index refuses when it opens.)"""
+        launches nothing on the device: a resident SINGLE index with a host
+        arena, and no codes, IVF layout or graph."""
         return (
             self._host_arena is not None
+            and not self.multi
+            and self.paging is None
             and self.codes is None
             and self.ivf is None
             and self.graph is None
@@ -389,10 +500,13 @@ class DeviceVectorIndex:
 
     def _can_extend(self, prev: "DeviceVectorIndex | None", store_dtype) -> bool:
         """True when ``prev``'s arena is reusable as a prefix of this one:
-        same device, shape, dtype and padding, identical leading segments,
-        and its tail not already handed to another successor."""
+        both resident SINGLE indexes on the same device, with the same
+        shape, dtype and padding, identical leading segments, and prev's
+        tail not already handed to another successor."""
         if prev is None or prev._seg_sig is None or prev._extended:
             return False
+        if prev.paging is not None or prev.multi:
+            return False  # a paged arena has no device prefix; slots are not rows
         if prev.device != self.device:
             return False
         if prev.config.dimension != self.config.dimension:
@@ -458,15 +572,19 @@ class DeviceVectorIndex:
     ) -> tuple[np.ndarray, np.ndarray]:
         """Top-k paragraphs per query.
 
-        queries: [B, D]. para_mask: [p_pad] or [n_para] bool (combined with
-        the base mask). ``with_duplicates=False`` drops results repeating an
-        identical vector (the reference's Fssc dedup).
-        Returns ([B, k] scores, [B, k] paragraph ids, -1 = empty).
+        queries: [B, D], or [B, M, D] against a MULTI index (a MaxSim
+        query of M vectors; its all-zero rows are padding). para_mask:
+        [p_pad] or [n_para] bool (combined with the base mask).
+        ``with_duplicates=False`` drops results repeating an identical
+        vector (the reference's Fssc dedup; a MULTI paragraph's whole slot
+        block). Returns ([B, k] scores, [B, k] paragraph ids, -1 = empty).
         """
         dedup = not with_duplicates
         q = np.asarray(queries, dtype=np.float32)
-        if q.ndim != 2:
-            raise ValueError("multivector (MaxSim) queries are not ported yet")
+        if q.ndim == 3 and not self.multi:
+            raise ValueError("multivector query against a single-vector index")
+        if q.ndim == 2 and self.multi:
+            q = q[:, None, :]  # a single vector against a MULTI index: MaxSim with M = 1
         if para_mask is not None and para_mask.shape[0] == self.n_para:
             full = np.zeros(self.p_pad, dtype=bool)
             full[: self.n_para] = para_mask
@@ -479,6 +597,10 @@ class DeviceVectorIndex:
                 dedup,
             )
         thread_stream(self.device)
+        if self.paging is not None:
+            mask_np = self.base_mask() if para_mask is None else self.base_mask() & para_mask
+            s, i = self._search_paged(q, top_k, mask_np, min_score, dedup)
+            return s[: q.shape[0]], i[: q.shape[0]]
         if para_mask is None:
             mask_t = self.base_mask_device()
             matching = int(self.alive.sum())
@@ -488,13 +610,28 @@ class DeviceVectorIndex:
             mask_t = torch.from_numpy(combined).to(self.device)
         # the floor compares in f32, as the JAX package's device scalar does
         ms = float(np.float32(NEG_INF if min_score is None else min_score))
+        sim = self.config.similarity.value
+
+        if self.multi:
+            b = q.shape[0]
+            b_pad = bucket(b, minimum=1)
+            qp = np.zeros((b_pad,) + q.shape[1:], np.float32)
+            qp[:b] = q
+            qmask = np.zeros(qp.shape[:2], dtype=bool)
+            qmask[:b] = np.abs(q).sum(-1) > 0
+            s, i = _maxsim_core(
+                self.vectors, self.m_count, torch.from_numpy(qp).to(self.device),
+                torch.from_numpy(qmask).to(self.device), mask_t, ms, top_k, self.m_max,
+                sim, dedup=dedup,
+            )
+            s, i = device_fetch(s, i)
+            return s[:b], i[:b]
 
         b = q.shape[0]
         b_pad = bucket(b, minimum=8)
         qp = np.zeros((b_pad, q.shape[1]), np.float32)
         qp[:b] = q
         qt = torch.from_numpy(qp).to(self.device)
-        sim = self.config.similarity.value
         pallas = "pallas" in self.config.flags
         dim = self.config.dimension
         args = (self.codes, self.vectors, qt, mask_t, ms, top_k, sim, dedup)
@@ -538,6 +675,91 @@ class DeviceVectorIndex:
             s, i = _search_exact(self.vectors, qt, mask_t, ms, top_k, sim, dedup)
         s, i = device_fetch(s, i)
         return s[:b], i[:b]
+
+    # ---- beyond-HBM search tiers ----------------------------------------
+
+    def _search_paged(
+        self, q: np.ndarray, k: int, mask_np: np.ndarray,
+        min_score: "float | None", dedup: bool,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Search when the f32 arena lives in host memory (see ``_page``).
+
+        host_rerank: the int8 candidates on the device (the top-2 slot scan
+        under its gate), one fetch, then the exact f32 rescore, dedup and
+        cut over the candidates' host rows. stream: an exact top-k of each
+        uploaded chunk, pipelined one chunk ahead (at most two chunks on the
+        device: the next chunk's upload and product are queued before the
+        previous one's fetch waits), a stable host merge, then the same host
+        rescore."""
+        sim = self.config.similarity.value
+        b_pad = bucket(q.shape[0], minimum=8)
+        qp = np.zeros((b_pad, q.shape[1]), np.float32)
+        qp[: q.shape[0]] = q
+        qt = prepare_query(torch.from_numpy(qp).to(self.device), sim)
+        if self.paging == "host_rerank":
+            c = min(quant.int8_rerank_budget(k), self.p_pad)
+            cand = _int8_candidates(self.codes, qt, c, torch.from_numpy(mask_np).to(self.device))
+            q_np, cand = device_fetch(qt, cand)
+            return self._host_rerank_cut(q_np, cand, k, min_score, dedup)
+        k2 = min((2 * k + 8) if dedup else k, self.p_pad)
+        rows = self.chunk_rows
+        parts_s, parts_i = [], []
+        pending = None  # (chunk start, device scores, device ids)
+
+        def collect(p):
+            s, i = device_fetch(p[1], p[2])
+            parts_s.append(s)
+            parts_i.append(np.where(i >= 0, i + p[0], -1))
+
+        for start in range(0, self.p_pad, rows):
+            chunk = self.vectors_host[start : start + rows]
+            if chunk.shape[0] < rows:  # the tail keeps the chunk's shape
+                chunk = np.concatenate([chunk, np.zeros((rows - chunk.shape[0], chunk.shape[1]), np.float32)])
+            m = np.zeros(rows, dtype=bool)
+            m[: min(rows, self.p_pad - start)] = mask_np[start : start + rows]
+            # from pageable memory: the copy has read the host rows when the
+            # call returns, so nothing waits on a staging buffer's reuse
+            s, i = _stream_chunk_topk(
+                torch.from_numpy(chunk).to(self.device), qt,
+                torch.from_numpy(m).to(self.device), min(k2, rows),
+            )
+            if pending is not None:
+                collect(pending)
+            pending = (start, s, i)
+        if pending is not None:
+            collect(pending)
+        all_s = np.concatenate(parts_s, axis=-1)
+        all_i = np.concatenate(parts_i, axis=-1)
+        order = np.argsort(-all_s, axis=-1, kind="stable")[:, :k2]
+        cand = np.take_along_axis(all_i, order, axis=-1)
+        (q_np,) = device_fetch(qt)
+        return self._host_rerank_cut(q_np, cand, k, min_score, dedup)
+
+    def _host_rerank_cut(
+        self, q: np.ndarray, cand: np.ndarray, k: int,
+        min_score: "float | None", dedup: bool,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Exact f32 rescore + Fssc dedup + top-k cut over host-gathered
+        candidate rows (the host mirror of _rerank_and_cut)."""
+        safe = np.maximum(cand, 0)
+        rows = self.vectors_host[safe]  # [B, C, D]
+        exact = np.einsum("bd,bcd->bc", q, rows, dtype=np.float32)
+        valid = cand >= 0
+        if dedup:
+            valid = valid & ~_host_duplicate_mask(rows, valid)
+        scored = np.where(valid, exact, np.float32(NEG_INF))
+        if min_score is not None:
+            scored = np.where(scored >= min_score, scored, np.float32(NEG_INF))
+        order = np.argsort(-scored, axis=-1, kind="stable")[:, :k]
+        top_s = np.take_along_axis(scored, order, axis=-1)
+        top_i = np.take_along_axis(cand, order, axis=-1)
+        top_i = np.where(top_s > np.float32(NEG_INF) / 2, top_i, -1)
+        if k > top_s.shape[1]:  # pad to the requested width
+            pad_s = np.full((top_s.shape[0], k - top_s.shape[1]), NEG_INF, np.float32)
+            pad_i = np.full((top_i.shape[0], k - top_i.shape[1]), -1, np.int64)
+            top_s = np.concatenate([top_s, pad_s], axis=-1)
+            top_i = np.concatenate([top_i, pad_i], axis=-1)
+        return top_s.astype(np.float32), top_i.astype(np.int64)
 
     def _search_host_exact(
         self, q: np.ndarray, k: int, mask_np: np.ndarray,
@@ -616,6 +838,23 @@ class DeviceVectorIndex:
 # --------------------------------------------------------------------------
 # Search programs — paragraph ids == arena rows
 # --------------------------------------------------------------------------
+
+
+def _stream_chunk_topk(chunk, queries, mask, k):
+    """One streamed chunk: exact f32 scores and a masked local top-k."""
+    return masked_topk(scores_matmul(queries, chunk), k, mask=mask)
+
+
+def _host_int8_encode(vectors: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Int8 codes of the paged tiers, encoded on the host so the f32 arena
+    is never uploaded to be quantised. The JAX package's numpy arithmetic,
+    kept verbatim: a true division by 127 and by the scale, where the
+    resident ``quant.Int8Codes.encode`` multiplies by f32(1/127) (XLA's
+    rewrite), so a scale can differ from the resident one in its last bit."""
+    v = vectors.astype(np.float32)
+    s = np.maximum(np.abs(v).max(axis=-1), 1e-12) / 127.0
+    codes = np.clip(np.round(v / s[:, None]), -127, 127).astype(np.int8)
+    return codes, s.astype(np.float32)
 
 
 def _host_duplicate_mask(cand_vecs: np.ndarray, valid: np.ndarray) -> np.ndarray:
@@ -766,3 +1005,36 @@ def _search_binary(codes, vectors, queries, para_mask, min_score, k, similarity,
     q = prepare_query(queries, similarity)
     _, cand = quant.binary_scan_candidates(codes, q, k, mask=para_mask)
     return _rerank_and_cut(vectors, q, cand, min_score, k, dedup=dedup)
+
+
+def _maxsim_core(vectors, m_count, queries, qmask, para_mask, min_score, k, m_max, similarity, dedup=False):
+    """Multivector MaxSim (the JAX package's ``_search_maxsim`` and its
+    core): the sum over the query's vectors (where ``qmask``) of each
+    paragraph's best slot score (nidx_vector/src/multivector.rs:33-46), as
+    one ``[B*M, D] x [P*m_max, D]`` product, the slots past ``m_count`` set
+    to ``NEG_INF`` in place (the product is the largest tensor of the
+    search), a max over each paragraph's slots and a sum over M. A
+    paragraph without slots (padding) sums to 0, so the base mask drops it.
+
+    With dedup: a top-(2k+8), then the duplicate mask over whole slot
+    blocks (slots are zero-padded, so equal blocks mean the same count and
+    vectors), then a top-k of the survivors."""
+    b, m, d = queries.shape
+    p_pad = vectors.shape[0] // m_max
+    q = prepare_query(queries.reshape(b * m, d), similarity)
+    slots = scores_matmul(q, vectors).view(b, m, p_pad, m_max)
+    slot_valid = torch.arange(m_max, device=vectors.device) < m_count[:, None]
+    slots.masked_fill_(~slot_valid, NEG_INF)
+    para = slots.amax(dim=-1)  # [B, M, P]
+    del slots
+    contrib = torch.where(qmask[:, :, None] & (para > NEG_INF / 2), para, 0.0)
+    maxsim = contrib.sum(dim=1)  # [B, P]
+    if not dedup:
+        return masked_topk(maxsim, k, mask=para_mask, min_score=min_score)
+    k2 = min(2 * k + 8, maxsim.shape[-1])
+    top_s, cand = masked_topk(maxsim, k2, mask=para_mask, min_score=min_score)
+    cand_vecs = vectors.view(p_pad, m_max * d)[cand.clamp_min(0)]
+    valid = (cand >= 0) & ~_duplicate_mask(cand_vecs, cand >= 0)
+    s2, pos = masked_topk(torch.where(valid, top_s, NEG_INF), k, min_score=min_score)
+    ids = torch.gather(cand, -1, pos.clamp_min(0))
+    return s2, torch.where(pos >= 0, ids, -1)

@@ -307,8 +307,8 @@ class ShardSearcher:
         from its host numpy exact tier — so the per-request thread handoff
         that exists to overlap device round trips is pure overhead. The
         index's ``host_resident`` asks the JAX package's questions: a host
-        arena, and no codes, IVF layout or graph (the port's index refuses
-        paged arenas when it opens)."""
+        arena, and no codes, IVF layout, graph or paged tier (a MULTI
+        index has no host arena)."""
         if self.paragraph is None or self.paragraph.engine.host_tier() is None:
             return False
         vs_name = request.vectorset or next(iter(self.vectors), "")

@@ -606,3 +606,102 @@ def test_hnsw_on_the_card_equals_the_cpu():
         np.testing.assert_array_equal(res["cuda"][1], res["cpu"][1])
         np.testing.assert_array_equal(res["cuda"][0], res["cpu"][0])
         assert res["cuda"][2] == res["cpu"][2]
+
+
+def _refuse_synchronize(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.cuda.synchronize() on a serving path")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+
+
+def _both_devices(tmp_path, elems, cfg, budget=None):
+    """A searcher on the card and one on the CPU over the same segment,
+    opened under ``NDBTPU_VECTOR_ARENA_BUDGET = budget`` when given."""
+    import os
+    from unittest import mock
+
+    from nucliadb_tpu_torch.index.vector import Seq, SimpleOpenIndex, VectorSearcher, create_segment
+
+    meta = create_segment(str(tmp_path / "s"), elems, cfg, device="cpu")
+    idx = SimpleOpenIndex(segment_list=[(meta, Seq(1))], deletion_list=[("r3/", Seq(2))])
+    env = {"NDBTPU_VECTOR_ARENA_BUDGET": str(budget)} if budget else {}
+    with mock.patch.dict(os.environ, env):
+        return VectorSearcher(cfg, idx, device="cuda"), VectorSearcher(cfg, idx, device="cpu")
+
+
+def test_cuda_maxsim_equals_the_cpu(tmp_path, monkeypatch):
+    """MULTI on the card: on exact data (every product and sum exact in f32)
+    the MaxSim answers equal the CPU's element for element, for [B, M, D]
+    and [B, D] queries, masks, min_score and the slot-block dedup, with
+    ``torch.cuda.synchronize`` made to raise."""
+    _need_card()
+    from nucliadb_tpu_torch.index.vector import Elem, VectorConfig
+
+    rng = np.random.default_rng(23)
+    cfg = VectorConfig(dimension=64, cardinality="multi")
+    elems = [Elem(key=f"r{i % 7}/f/{i}/0-1", vectors=_exact(rng, (int(rng.integers(1, 9)), 64)),
+                  labels=["/l/a"] if i % 3 == 0 else []) for i in range(2000)]
+    elems[1] = Elem(key=elems[1].key, vectors=elems[0].vectors)  # one slot block twice
+    gpu, cpu = _both_devices(tmp_path, elems, cfg)
+    assert gpu.index.m_max == cpu.index.m_max == 8 and gpu.index.vectors.is_cuda
+    q3 = _exact(rng, (5, 4, 64))
+    q3[0, :1] = elems[0].vectors[:1]
+    q3[4, 3] = 0.0
+    mask = rng.random(gpu.index.n_para) < 0.7
+    _refuse_synchronize(monkeypatch)
+    for q in (q3, q3[:, 0]):
+        for kw in (dict(), dict(para_mask=mask), dict(min_score=0.5), dict(with_duplicates=False)):
+            gs, gi = gpu.index.search(q, 10, **kw)
+            cs, ci = cpu.index.search(q, 10, **kw)
+            np.testing.assert_array_equal(gi, ci)
+            np.testing.assert_array_equal(gs, cs)
+
+
+def test_cuda_host_rerank_launches_the_top2_kernel(tmp_path, monkeypatch):
+    """The host_rerank tier on the card takes its candidates from the top-2
+    slot-scan kernel (one counted launch a search) over the host-encoded
+    codes, and answers as the CPU's plain route does, with
+    ``torch.cuda.synchronize`` made to raise."""
+    _need_card()
+    from nucliadb_tpu_torch.index.vector import Elem, VectorConfig
+
+    rng = np.random.default_rng(24)
+    v = rng.standard_normal((3000, 128)).astype(np.float32)
+    cfg = VectorConfig(dimension=128)
+    elems = [Elem(key=f"r{i % 7}/f/{i}/0-1", vectors=v[i], labels=["/l/a"] if i % 2 else []) for i in range(3000)]
+    elems += [Elem(key=f"dup/f/{j}/0-1", vectors=v[0]) for j in range(3)]
+    gpu, cpu = _both_devices(tmp_path, elems, cfg, budget=4096 * (128 + 4) + 1)
+    assert gpu.index.paging == cpu.index.paging == "host_rerank"
+    assert torch.equal(gpu.index.codes.codes.cpu(), cpu.index.codes.codes)
+    q = rng.standard_normal((6, 128)).astype(np.float32)
+    q[0] = v[0] + 0.01 * q[0]
+    mask = np.arange(gpu.index.n_para) % 5 != 0
+    _refuse_synchronize(monkeypatch)
+    for kw in (dict(), dict(with_duplicates=False), dict(para_mask=mask, min_score=0.0)):
+        launches = slot_scan.LAUNCHES["top2"]
+        gs, gi = gpu.index.search(q, 10, **kw)
+        assert slot_scan.LAUNCHES["top2"] == launches + 1
+        assert_same_results(*cpu.index.search(q, 10, **kw), gs, gi)
+
+
+def test_cuda_stream_tier_equals_the_cpu(tmp_path, monkeypatch):
+    """The stream tier on the card, 16 chunks each uploaded and scanned
+    while the previous one's top-k is fetched, answers as the CPU does
+    (ids equal; scores within the helpers' RTOL), with
+    ``torch.cuda.synchronize`` made to raise."""
+    _need_card()
+    from nucliadb_tpu_torch.index.vector import Elem, VectorConfig
+
+    rng = np.random.default_rng(25)
+    v = rng.standard_normal((4000, 256)).astype(np.float32)
+    cfg = VectorConfig(dimension=256)
+    elems = [Elem(key=f"r{i % 7}/f/{i}/0-1", vectors=v[i]) for i in range(4000)]
+    elems += [Elem(key=f"dup/f/{j}/0-1", vectors=v[5]) for j in range(3)]
+    gpu, cpu = _both_devices(tmp_path, elems, cfg, budget=256 * 256 * 4)
+    assert gpu.index.paging == "stream" and gpu.index.p_pad // gpu.index.chunk_rows == 16
+    q = rng.standard_normal((40, 256)).astype(np.float32)
+    q[0] = v[5]
+    _refuse_synchronize(monkeypatch)
+    for kw in (dict(), dict(with_duplicates=False), dict(min_score=1.0)):
+        assert_same_results(*cpu.index.search(q, 10, **kw), *gpu.index.search(q, 10, **kw))

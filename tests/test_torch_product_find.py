@@ -454,6 +454,45 @@ def sc_retrieve(pkg, tmp):
                      filter_expression=api.FilterExpression(literal="/l/topic/animals"))]
 
 
+def sc_find_multivector(pkg, tmp):
+    """Not in test_product_find.py: a knowledge box whose vectorset is
+    multivector (MaxSim): each paragraph's sentence embeddings become one
+    elem keyed by the paragraph; /find sends one query vector (M = 1),
+    semantic only and hybrid, with a label filter and a semantic floor."""
+    node = pkg.node(tmp / "node", storage=pkg.MemoryStorage())
+    driver = pkg.Driver(str(tmp / "kv.db"))
+    kbs = pkg.KnowledgeBoxManager(driver, node)
+    processor = pkg.Processor(driver, node, kbs)
+    search = pkg.SearchService(node, kbs, processor)
+    kbid = kbs.create(pkg.conv(api.KnowledgeBoxConfig(
+        slug="mvkb", vectorsets={"colbert": api.VectorSetSpec(dimension=DIM, multivector=True)})))
+    rng = np.random.default_rng(17)
+    rids = []
+    for r, (title, topic) in enumerate((("Fox doc", "animals"), ("Finance doc", "finance"), ("Wolf doc", "animals"))):
+        paras = [f"{title} paragraph {p} about quick things number {r}" for p in range(3)]
+        body = "\n\n".join(paras)
+        embs, start = [], 0
+        for text in paras:
+            for t in range(int(rng.integers(1, 4))):  # 1-3 token vectors a paragraph
+                v = rng.standard_normal(DIM).astype(np.float32)
+                embs.append(api.SentenceEmbedding(start=start, end=start + len(text), vector=(v / np.linalg.norm(v)).tolist()))
+            start += len(text) + 2
+        p = payload(title, body, labels=[("topic", topic)])
+        p.embeddings = {"colbert": {"text1": embs}}
+        rids.append(processor.create_resource(kbid, pkg.conv(p))[0])
+    node.wait_for_sync()
+    q = embs[0].vector
+    sem = [api.SearchFeature.SEMANTIC]
+    return [
+        rids,
+        search.find(kbid, pkg.conv(api.FindRequest(query="", vector=q, vectorset="colbert", features=sem, top_k=5))),
+        search.find(kbid, pkg.conv(api.FindRequest(query="quick paragraph", vector=q, vectorset="colbert", top_k=5))),
+        search.find(kbid, pkg.conv(api.FindRequest(
+            query="", vector=q, vectorset="colbert", features=sem, top_k=5, min_score_semantic=0.0,
+            filter_expression=api.FilterExpression(literal="/l/topic/animals")))),
+    ]
+
+
 SCENARIOS = {name[3:]: fn for name, fn in globals().items() if name.startswith("sc_")}
 
 

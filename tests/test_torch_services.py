@@ -523,9 +523,10 @@ def test_prometheus_service_metrics(tmp_path):
 
 
 def test_node_refuses_what_is_not_ported(tmp_path):
-    """Storage backends needing httpx and MULTI cardinality fail loudly when
-    asked for, and a CUDA node without a card raises; a CPU node indexes,
-    syncs and searches vectorsets flagged hnsw and ivf."""
+    """Storage backends needing httpx fail loudly when asked for, and a CUDA
+    node without a card raises; a CPU node indexes, syncs and searches
+    vectorsets flagged hnsw and ivf, and a MULTI vectorset (one elem per
+    paragraph, searched by MaxSim)."""
     import torch
     from types import SimpleNamespace
 
@@ -539,8 +540,13 @@ def test_node_refuses_what_is_not_ported(tmp_path):
     multi = as_port(VectorConfig(dimension=DIM))
     multi.cardinality = VectorCardinality.MULTI
     sid = node.create_shard("kb", {"m1": multi}, shard_id="multi")
-    with pytest.raises(NotImplementedError):
-        node.index(sid, as_port(make_resource("r1", "some text")))
+    node.index(sid, as_port(make_resource("r1", "some text")))
+    node.wait_for_sync()
+    index = node.searcher.shard(sid).vectors["m1"].index
+    assert index.multi and index.m_max == 1 and index.keys == ["r1/t/t1/0-9"]
+    resp = node.search(sid, as_port(ShardSearchRequest(body="", vector=embed("some text"), paragraph=False)))
+    assert [h.key for h in resp.vector] == ["r1/t/t1/0-9"]
+    np.testing.assert_allclose(resp.vector[0].score, 1.0, rtol=1e-5)
     for flag in ("hnsw", "ivf"):
         sid = node.create_shard("kb", {"m1": as_port(VectorConfig(dimension=DIM, flags=[flag]))}, shard_id=flag)
         res = as_port(make_resource("r1", "some text"))

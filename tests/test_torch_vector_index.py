@@ -125,8 +125,10 @@ def test_config_dict_round_trip_matches_jax():
 
 
 def test_unported_configurations_raise(tmp_path):
-    """MULTI cardinality and arena paging still raise; the hnsw and ivf
-    flags build their graph or centroids on the CPU and search."""
+    """Nothing of the vector index is refused any more: the hnsw and ivf
+    flags build their graph or centroids on the CPU and search; a MULTI
+    config opens and searches (MaxSim) and an arena budget opens the paged
+    tier the JAX package picks, each answering as the JAX package does."""
     rng = np.random.default_rng(21)
     elems = _elems(tsegment, rng, 10, DIM, 0)
     for flag, column in (("hnsw", "hnsw_adj"), ("ivf", "ivf_centroids")):
@@ -137,13 +139,24 @@ def test_unported_configurations_raise(tmp_path):
         searcher = tvector.VectorSearcher(cfg, tvector.SimpleOpenIndex(segment_list=[(fmeta, tvector.Seq(1))]), device="cpu")
         hits = searcher.search(tvector.VectorSearchRequest(vectors=elems[4].vectors[0], top_k=3))
         assert hits[0][0].key == elems[4].key
-    meta = tsegment.create_segment(str(tmp_path / "s"), elems, tvector.VectorConfig(DIM))
-    idx = tvector.SimpleOpenIndex(segment_list=[(meta, tvector.Seq(1))])
-    with pytest.raises(NotImplementedError):
-        tvector.VectorSearcher(tvector.VectorConfig(DIM, cardinality="multi"), idx, device="cpu")
-    with mock.patch.dict(os.environ, {"NDBTPU_VECTOR_ARENA_BUDGET": "1000"}):
-        with pytest.raises(NotImplementedError):
-            tvector.VectorSearcher(tvector.VectorConfig(DIM), idx, device="cpu")
+    jelems = [jsegment.Elem(e.key, e.vectors, e.labels, e.metadata) for e in elems]
+    meta = jsegment.create_segment(str(tmp_path / "s"), jelems, jvector.VectorConfig(DIM))
+    jidx = SimpleOpenIndex(segment_list=[(meta, Seq(1))])
+    idx = as_port(jidx)
+    q = rng.standard_normal((2, DIM)).astype(np.float32)
+    for kw, env in (
+        (dict(cardinality="multi"), {}),
+        ({}, {"NDBTPU_VECTOR_ARENA_BUDGET": "1000"}),
+    ):
+        with mock.patch.dict(os.environ, env):
+            ts = tvector.VectorSearcher(tvector.VectorConfig(DIM, **kw), idx, device="cpu")
+            js = jvector.VectorSearcher(jvector.VectorConfig(DIM, **kw), jidx)
+        assert ts.index.paging == js.index.paging == ("stream" if env else None)
+        assert ts.index.multi == js.index.multi == bool(kw)
+        _assert_same_hits(
+            js.search(jvector.VectorSearchRequest(vectors=q, top_k=5)),
+            ts.search(tvector.VectorSearchRequest(vectors=q, top_k=5)),
+        )
 
 
 # --------------------------------------------------------------------------
