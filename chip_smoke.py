@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 
 It drives the port's vector-search paths, the semantic leg of /find, its
 keyword leg, the index node, the product /find, the standalone HTTP
-server, the opt-in ANN strategies, the beyond-HBM paged tiers and
-multivector MaxSim once at full size, in phases that each print one
+server, the opt-in ANN strategies, the beyond-HBM paged tiers,
+multivector MaxSim and the mesh (the multi-shard groups and the
+mesh-sharded indexes) once at full size, in phases that each print one
 line:
 
 1. device: the card's name and power limit;
@@ -195,11 +196,33 @@ line:
    the ``Processor``, merged and synced, answering 16 semantic /find
    requests with one query vector, each semantic hit its paragraph's
    float64 MaxSim.
+12. mesh: (after the paged tiers, over the slices' corpus) the port's
+   ``parallel/`` on a 4-member mesh of the one card (``make_mesh(4)``
+   repeats it): ``MeshVectorGroup`` over the 4 segments as 4 shards of
+   250,000 x 768 int8 (bench_suite.py's bench_scatter4 shape), counted: a
+   batch of 64 and one of 2048, 4 top-2 launches each; every member's cut
+   equal to its shard's own ``search`` bit for bit (and label-filtered), the
+   merged recall@10 >= 0.95 on the 1,024-query oracle; the group's and 4
+   sequential calls' ms, the card's busy ms, the group's own device bytes
+   and the all-gather merge's ms. An uneven group (500,000 / 250,000 /
+   250,000 rows, members padded, a padded member slot) bit for bit.
+   ``MeshShardedVectorIndex`` over the 1M on a (4, 1) mesh: exact (the
+   global oracle's ids up to ties) and int8 (recall@10 >= 0.95).
+   The keyword half (the host tier off): 4 paragraph shards of 250,000 of
+   config 3's corpus; ``MeshTextGroup`` on 32 requests equal to each
+   shard's own search (hits, scores, totals), ``MeshShardedTextEngine``
+   equal to the engines' merged cuts up to ties, ``MeshHybridIndex`` over
+   the aligned (vector, text) shards equal to a host RRF of its two merged
+   cuts. Then ``search_multi`` over an ``EmbeddedNode``'s 4 shards (40
+   resources x 200 paragraphs, the int8 threshold lowered in process, the
+   device listing replaced as the tests replace it) on both keyword routes:
+   the mesh branch's responses equal the per-shard path's, 4 top-2 launches
+   a request.
 
 It then prints each phase's wall seconds, the kernels' JSON line (each
-kernel's launches on its path and on the node, /find and HTTP phases'
-counted paths and on the paged phase's, times, bound from this run's
-shapes and its share of it)
+kernel's launches on its path and on the node, /find, HTTP, paged and
+mesh phases' counted paths, times, bound from this run's shapes and its
+share of it)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
@@ -1070,6 +1093,448 @@ def phase_paged(torch, slot_scan, binary_scan, corpus, device="cuda"):
     out["stream"]["breakdown"] = stream_breakdown(torch, idx, q_np, device)
     print(f"paged numbers: {json.dumps(out)}", flush=True)
     return out["host_rerank"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the mesh: the multi-shard groups and the mesh-sharded indexes
+# ---------------------------------------------------------------------------
+
+MESH_FULL = {
+    "members": 4,  # bench_suite.py's bench_scatter4: 4 shards, on a 4-member mesh of one card
+    "batches": (64, 2048),
+    "kw_paragraphs": 250_000,  # a keyword shard (4 x 250,000 = 1,000,000 paragraphs of config 3)
+    "kw_requests": 32,  # paragraph requests through the text group
+    "kw_engine_queries": 16,  # queries through MeshShardedTextEngine and MeshHybridIndex
+    "hybrid_batch": 64,
+    "node_resources": 40,  # 10 a shard x 200 paragraphs, written by the port's node
+    "node_threshold": 1024,  # EXACT_SCAN_THRESHOLD lowered in process: 2,000-paragraph shards take the int8 route
+    "node_requests": 16,
+}
+MESH_TOP_K = TOP_K
+
+
+def mesh_merge_host(scores, ids, offsets, k):
+    """The members' [S, B, k] cuts merged on the host: global ids
+    (``offsets[s]`` + local), the k best of each row, the earlier member
+    first among equal scores."""
+    s_all = np.concatenate([scores[s] for s in range(len(offsets))], axis=1)
+    i_all = np.concatenate([np.where(ids[s] >= 0, ids[s] + offsets[s], -1) for s in range(len(offsets))], axis=1)
+    order = np.argsort(-s_all, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s_all, order, 1), np.take_along_axis(i_all, order, 1)
+
+
+def mesh_recall(ids, oracle) -> float:
+    return float(np.mean([len(set(ids[r].tolist()) & set(oracle[r].tolist())) / TOP_K for r in range(len(oracle))]))
+
+
+def mesh_exact_up_to_ties(vecs_np, q_np, ids, oracle_ids, what, rtol=PAGED_TIE_RTOL) -> None:
+    """Each row's ids are the oracle's, but for ids whose float64 score lies
+    within ``rtol`` of the oracle's 10th."""
+    for r in range(len(oracle_ids)):
+        got, want = set(ids[r].tolist()), set(oracle_ids[r].tolist())
+        if got == want:
+            continue
+        q = q_np[r].astype(np.float64)
+        tenth = float(vecs_np[int(oracle_ids[r][-1])].astype(np.float64) @ q)
+        for i in got ^ want:
+            s = float(vecs_np[int(i)].astype(np.float64) @ q)
+            check(abs(s - tenth) <= rtol * abs(tenth) + 1e-6, f"{what}: row {r} id {i} outside the ties of the 10th")
+
+
+def group_kernel_check(torch, slot_scan, group, i, masks, q_np, what) -> dict:
+    """Member ``i``'s top-2 slot table as the group computes it (the group's
+    own codes, scale and mask, its bucketed and quantized queries), kernel
+    against plain version, bit for bit."""
+    from nucliadb_tpu_torch.ops import quant
+    from nucliadb_tpu_torch.ops.distance import prepare_query
+    from nucliadb_tpu_torch.utils.buckets import bucket
+
+    dev, codes = group.devices[i], group.codes[i]
+    qp = np.zeros((bucket(q_np.shape[0], minimum=8), q_np.shape[1]), np.float32)
+    qp[: q_np.shape[0]] = q_np
+    qc, _ = quant.quantize_rows(prepare_query(torch.from_numpy(qp).to(dev), group.similarity))
+    args = (qc, codes.codes, codes.scale, torch.from_numpy(masks[i]).to(dev))
+    same, err = same_table(torch, slot_scan.int8_scan_slots_resident2(*args),
+                           slot_scan.int8_scan_slots_resident2_reference(*args))
+    b, n = qc.shape[0], codes.codes.shape[0]
+    check(same, f"{what}: member {i}'s top-2 kernel differs from its plain version at B={b}, N={n} "
+                f"(max |diff| {err})")
+    return {"b": b, "n": n, "max_abs_err": err}
+
+
+def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
+    """The mesh on one card (see the module docstring): the vector group at
+    bench_scatter4's shape over the slices' corpus, an uneven group, the
+    sharded index (exact and int8), the keyword group, the sharded keyword
+    and hybrid indexes, and ``search_multi``'s mesh branch over a node's 4
+    shards. Returns the top-2 launches of the counted group run."""
+    import os
+
+    import nucliadb_tpu_torch.index.vector.device as vdevice
+    from nucliadb_tpu_torch.index.paragraph import ParagraphSearcher, ParagraphSearchRequest
+    from nucliadb_tpu_torch.index.text_engine import TextQuery
+    from nucliadb_tpu_torch.index.text_engine.builder import DocEntry, build_segment
+    from nucliadb_tpu_torch.index.vector import (
+        LabelAtom, Quantization, Seq, Similarity, SimpleOpenIndex, VectorConfig, VectorSearcher,
+    )
+    from nucliadb_tpu_torch.ops import bm25
+    from nucliadb_tpu_torch.ops.topk import sharded_topk_allgather
+    from nucliadb_tpu_torch.parallel import MeshHybridIndex, MeshShardedTextEngine, MeshShardedVectorIndex, make_mesh
+    from nucliadb_tpu_torch.parallel import hybrid_mesh
+    from nucliadb_tpu_torch.parallel import mesh as pmesh
+    from nucliadb_tpu_torch.parallel.group import MeshVectorGroup
+    from nucliadb_tpu_torch.parallel.text_group import MeshTextGroup
+
+    cuda = device == "cuda"
+    members = cfg["members"]
+    grid = make_mesh(members, device=device)  # (shard, query) = (members, 1), one card repeated
+    mesh1d = pmesh.Mesh(grid.devices.reshape(-1), ("shard",))
+    out = {}
+
+    def busy_ms(fn):
+        return device_busy_ms(torch, fn) if cuda else float("nan")
+
+    def allocated():  # on every card the members may live on
+        return sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count())) if cuda else 0
+
+    # ---- the vector group: 4 shards of the slices' segments ----------------
+    vcfg = VectorConfig(dimension=DIM, similarity=Similarity.DOT, quantization=Quantization.INT8)
+    segs, dels = corpus.open_index.segment_list, corpus.open_index.deletion_list
+    check(len(segs) == members, f"{len(segs)} segments for {members} members")
+    per_seg = N_ROWS // N_SEGMENTS
+
+    def shard(seg_ids):
+        return VectorSearcher(vcfg, SimpleOpenIndex(segment_list=[segs[i] for i in seg_ids], deletion_list=dels),
+                              device=device)
+
+    t = time.perf_counter()
+    shards = [shard([s]) for s in range(members)]
+    t_open = time.perf_counter() - t
+    check(all(isinstance(sh.index.codes, vdevice.quant.Int8Codes) for sh in shards), "a shard without int8 codes")
+    before = allocated()
+    t = time.perf_counter()
+    group = MeshVectorGroup(shards, mesh1d)
+    t_group = time.perf_counter() - t
+    group_bytes, added = group.device_bytes, allocated() - before
+    check(group.use_codes, "the group does not take the int8 route")
+    check(all(v is sh.index.vectors and c.codes is sh.index.codes.codes
+              for v, c, sh, d in zip(group.vectors, group.codes, shards, group.devices)
+              if d == sh.index.vectors.device), "a member on its shard's card copied the arena")
+    masks = [sh.index.base_mask() for sh in shards]
+    offsets = [s * per_seg for s in range(members)]
+
+    def same_as_sequential(g, shs, q, what, msks=None, filt=None):
+        gs, gi = g.search(q, MESH_TOP_K, msks or [sh.index.base_mask() for sh in shs])
+        for si, sh in enumerate(shs):
+            es, ei = sh.index.search(q, MESH_TOP_K, para_mask=None if filt is None else filt[si])
+            check(np.array_equal(gi[si], ei), f"{what}: member {si} ids differ from its sequential search")
+            check(np.array_equal(gs[si].view(np.int32), es.view(np.int32)),
+                  f"{what}: member {si} scores differ from its sequential search in their bits")
+        return gs, gi
+
+    # ---- the main path, counted -----------------------------------------
+    reset_launches(slot_scan)
+    cuts = {}
+    for b in cfg["batches"]:
+        cuts[b] = group.search(corpus.q_np[:b], MESH_TOP_K, masks)
+    launches = slot_scan.LAUNCHES.get("top2", 0)
+    # ----------------------------------------------------------------------
+    check(launches == members * len(cfg["batches"]), f"top-2 kernel launched {launches} times on the group path")
+    kernel_checks = [group_kernel_check(torch, slot_scan, group, 0, masks, corpus.q_np[:b], "group")
+                     for b in cfg["batches"]]
+    for b in cfg["batches"]:
+        same_as_sequential(group, shards, corpus.q_np[:b], f"group at B={b}", masks)
+    # a label filter: the members' masks from the same filter
+    filt = []
+    for sh in shards:
+        m = np.zeros(sh.index.n_para, bool)
+        m[sh.index.label_postings("/l/tenth")] = True
+        filt.append(m)
+    fmasks = [sh.index.base_mask() & np.pad(m, (0, sh.index.p_pad - m.shape[0])) for sh, m in zip(shards, filt)]
+    gs_f, gi_f = same_as_sequential(group, shards, corpus.q_np[:64], "group, label-filtered", fmasks, filt)
+    check(all(sh.index.keys[i].split("/")[2] == "0" for s, sh in enumerate(shards) for i in gi_f[s].reshape(-1)
+              if i >= 0), "group: an unlabelled paragraph passed the filter")
+    bmax = max(cfg["batches"])
+    m_s, m_i = mesh_merge_host(*cuts[bmax], offsets, TOP_K)
+    check([sh.index.keys[0] for sh in shards] == [key_of(o) for o in offsets], "a shard's rows out of order")
+    recall = mesh_recall(m_i[:ORACLE_QUERIES], corpus.oracle)
+    check(recall >= RECALL_BAR, f"group recall@10 {recall} < {RECALL_BAR}")
+    check(not any(int(i) // 10 == int(DELETED[1:-1]) for i in m_i.reshape(-1)), "group: a deleted paragraph came back")
+
+    timing = {}
+    for b in cfg["batches"]:
+        q = corpus.q_np[:b]
+        g_ms, _ = median_ms(lambda: group.search(q, MESH_TOP_K, masks))
+        s_ms, _ = median_ms(lambda: [sh.index.search(q, MESH_TOP_K) for sh in shards])
+        busy = busy_ms(lambda: group.search(q, MESH_TOP_K, masks))
+        timing[b] = {"group_ms": g_ms, "sequential_ms": s_ms, "busy_ms": busy}
+    # the all-gather merge alone, on the card: the members' [B, 10] cuts
+    cut_s = [torch.from_numpy(np.ascontiguousarray(cuts[bmax][0][s])).to(device) for s in range(members)]
+    cut_i = [torch.from_numpy(np.ascontiguousarray(cuts[bmax][1][s]) + offsets[s]).to(device) for s in range(members)]
+    merge = lambda: sharded_topk_allgather(cut_s, cut_i, TOP_K)  # noqa: E731
+    merge_ms = cuda_ms(merge, 20) if cuda else median_ms(merge)[0]
+    ms_dev, mi_dev = merge()
+    check(np.array_equal(mi_dev.cpu().numpy(), m_i), "the device merge differs from the host merge")
+    out["group"] = {"open_s": t_open, "build_s": t_group, "device_bytes": group_bytes, "allocated": added,
+                    "recall": recall, "launches": launches, "timing": timing, "merge_ms": merge_ms}
+    print(
+        f"mesh group: {members} shards of {per_seg} x {DIM} (p_pad {shards[0].index.p_pad}) on a {members}-member "
+        f"mesh of {sorted({str(d) for d in group.devices})}; open {t_open:.1f}s, group {t_group:.2f}s holding "
+        f"{group_bytes} device bytes of copies (allocated {added}); every member's cut equals its sequential "
+        f"search bit for bit at B in {cfg['batches']} and label-filtered; member 0's top-2 kernel bit for bit "
+        f"against its plain version at (B, N) in {[(c['b'], c['n']) for c in kernel_checks]}; merged recall@10 "
+        f"{recall:.4f}; top-2 launches {launches}; "
+        + "; ".join(f"B={b}: group {v['group_ms']:.2f} ms, {members} sequential calls {v['sequential_ms']:.2f} ms, "
+                    f"card busy {v['busy_ms']:.3f} ms ({v['busy_ms'] / v['group_ms']:.3f} of the group's)"
+                    for b, v in timing.items())
+        + f"; the all-gather merge of {members} x [{bmax}, {TOP_K}] {merge_ms:.4f} ms",
+        flush=True,
+    )
+    del group, cut_s, cut_i
+
+    # ---- an uneven group: 500k / 250k / 250k, a surplus member slot -------
+    big = shard([0, 1])
+    uneven = [big, shards[2], shards[3]]
+    group_u = MeshVectorGroup(uneven, mesh1d)
+    check(big.index.p_pad > shards[2].index.p_pad and group_u.s_pad == members,
+          f"uneven group p_pad {[sh.index.p_pad for sh in uneven]}, s_pad {group_u.s_pad}")
+    reset_launches(slot_scan)
+    same_as_sequential(group_u, uneven, corpus.q_np[:bmax], "uneven group")
+    check(slot_scan.LAUNCHES["top2"] == 2 * len(uneven), f"uneven group launches {dict(slot_scan.LAUNCHES)}")
+    masks_u = [sh.index.base_mask() for sh in uneven]
+    kernel_checks.append(group_kernel_check(torch, slot_scan, group_u, 0, masks_u, corpus.q_np[:bmax], "uneven group"))
+    out["group"]["kernel_checks"] = kernel_checks
+    print(f"mesh uneven group: members of {[sh.index.n_para for sh in uneven]} rows (p_pad "
+          f"{[sh.index.p_pad for sh in uneven]}); equal to the sequential searches bit for bit at B={bmax}; the "
+          f"{big.index.p_pad}-row member's top-2 kernel bit for bit against its plain version; "
+          f"{group_u.device_bytes} device bytes of copies", flush=True)
+    del group_u, big, uneven, shards
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- the sharded index over the same 1M: exact and int8 ---------------
+    vecs_np = corpus.vecs.cpu().numpy()
+    q_o = corpus.q_np[:ORACLE_QUERIES]
+    everything = torch.ones(N_ROWS, dtype=torch.bool, device=corpus.vecs.device)
+    oracle_all = exact_oracle(torch, corpus.vecs, everything, corpus.queries[:ORACLE_QUERIES], TOP_K)
+    sharded = {}
+    for quantize in (False, True):
+        t = time.perf_counter()
+        idx = MeshShardedVectorIndex(vecs_np, grid, quantize=quantize)
+        t_build = time.perf_counter() - t
+        s_, i_ = idx.search(q_o, TOP_K)
+        what = "sharded int8" if quantize else "sharded exact"
+        check(s_.shape == (ORACLE_QUERIES, TOP_K) and bool((i_ >= 0).all()), f"{what}: result shape")
+        if quantize:
+            rec = mesh_recall(i_, oracle_all)
+            check(rec >= RECALL_BAR, f"{what}: recall@10 {rec} < {RECALL_BAR}")
+        else:
+            mesh_exact_up_to_ties(vecs_np, q_o, i_, oracle_all, what)
+            rec = mesh_recall(i_, oracle_all)
+        ms, _ = median_ms(lambda: idx.search(q_o, TOP_K), 3)
+        sharded["int8" if quantize else "exact"] = {"build_s": t_build, "recall": rec, "ms": ms}
+        del idx
+    out["sharded"] = sharded
+    print(f"mesh sharded index: {N_ROWS} x {DIM} on a {grid.shape} mesh, {ORACLE_QUERIES} queries: exact "
+          f"{sharded['exact']['ms']:.2f} ms, the global oracle's ids up to ties (recall@10 "
+          f"{sharded['exact']['recall']:.4f}); int8 {sharded['int8']['ms']:.2f} ms, recall@10 "
+          f"{sharded['int8']['recall']:.4f}", flush=True)
+    del vecs_np
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- the keyword half: 4 paragraph shards of config 3's corpus --------
+    os.environ["NDBTPU_TEXT_HOST_TIER"] = "0"  # the device route: the group program runs on the card
+    try:
+        words = kw_vocab()
+        n = cfg["kw_paragraphs"]
+        t = time.perf_counter()
+        texts, _ = kw_texts(words, members * n, 17)
+        psearchers = []
+        for s in range(members):
+            docs = [DocEntry(key=key_of(s * n + i), text=texts[s * n + i],
+                             facets=["/t/t", "/l/tenth"] if i % 10 == 0 else ["/t/t"]) for i in range(n)]
+            seg = build_segment(f"{tmp}/mesh_kw{s}", docs, kind="paragraph")
+            psearchers.append(ParagraphSearcher(SimpleOpenIndex(segment_list=[(seg, Seq(1))]), device=device))
+        del texts
+        t_kw = time.perf_counter() - t
+        check(MeshTextGroup.eligible(psearchers), "the keyword shards are not group-eligible")
+        tgroup = MeshTextGroup(psearchers, mesh1d)
+        rng = np.random.default_rng(29)
+        bodies = [f"{words[int(rng.integers(0, 2000))]} {words[int(rng.integers(0, 2000))]} "
+                  f"{'quikc' if i % 2 else 'borwn'}" for i in range(cfg["kw_requests"])]
+        reqs = [ParagraphSearchRequest(query=b, top_k=KW_TOP_K, fuzzy=True,
+                                       filter=LabelAtom("/l/tenth") if i % 4 == 3 else None,
+                                       all_terms=i % 8 == 5)
+                for i, b in enumerate(bodies)]
+        before = bm25.DISPATCHES.total()
+        grouped = []
+        for req in reqs:
+            queries = [p.plan_kernel_query(req) for p in psearchers]
+            check(all(q is not None for q in queries), "a plannable request did not plan")
+            top_s, top_ic, counts = tgroup.search(queries, req.top_k)
+            grouped.append([p.finish_kernel(req, q, top_s[i], top_ic[i], int(counts[i]))
+                            for i, (p, q) in enumerate(zip(psearchers, queries))])
+        dispatched = bm25.DISPATCHES.total() - before
+        check(dispatched == members * len(reqs), f"the text group dispatched {dispatched} programs")
+        for req, got in zip(reqs, grouped):
+            for p, g in zip(psearchers, got):
+                want = p.search(req)
+                check([(h.paragraph_id, h.score) for h in g.hits] == [(h.paragraph_id, h.score) for h in want.hits]
+                      and g.total == want.total, f"text group differs from the sequential engine on {req.query!r}")
+        tg_ms, _ = median_ms(lambda: tgroup.search([p.plan_kernel_query(reqs[0]) for p in psearchers], KW_TOP_K))
+        ts_ms, _ = median_ms(lambda: [p.search(reqs[0]) for p in psearchers])
+
+        # the sharded keyword engine: the single-arena program on each member
+        engines = [p.engine for p in psearchers]
+        tmesh = MeshShardedTextEngine(engines, grid)
+        kq = [TextQuery(text=f"{words[int(rng.integers(0, 2000))]} {words[int(rng.integers(0, 2000))]}", top_k=KW_TOP_K)
+              for _ in range(cfg["kw_engine_queries"])]
+        for q in kq:
+            ms_s, ms_i = tmesh.search(q)
+            parts = [e.search(q, need_matched=False)[0] for e in engines]
+            want = sorted(((h.score, -(int(tmesh.offsets[s]) + h.doc_id)) for s, hs in enumerate(parts) for h in hs),
+                          reverse=True)[: q.top_k]
+            want_s = np.array([w[0] for w in want])
+            check(len(ms_s) == len(want), f"sharded keyword engine: {len(ms_s)} hits, the engines' merge {len(want)}")
+            check(bool(np.all(np.abs(ms_s - want_s) <= KW_RTOL * np.abs(want_s) + 1e-6)),
+                  f"sharded keyword engine: scores differ on {q.text!r}")
+            band = want_s[-1] * (1 + KW_RTOL) + 1e-6 if len(want) else 0
+            check({int(i) for s, i in zip(ms_s, ms_i) if s > band} == {-w[1] for w in want if w[0] > band},
+                  f"sharded keyword engine: ids differ on {q.text!r}")
+        te_ms, _ = median_ms(lambda: tmesh.search(kq[0]))
+
+        # the hybrid: aligned (vector, text) shards, RRF on the device
+        hvecs = [corpus.vecs[s * per_seg : s * per_seg + n].cpu().numpy() for s in range(members)]
+        hyb = MeshHybridIndex(list(zip(hvecs, engines)), grid)
+        hq = corpus.q_np[: cfg["hybrid_batch"]]
+        for q in kq[:4]:
+            fs, fi = hyb.search(hq, q, TOP_K)
+            check(fs.shape == (len(hq), TOP_K), "hybrid: result shape")
+            (vg_s, vg_i, bg_s, bg_i), = list(hybrid_mesh._merged_legs(
+                hyb, TOP_K, hq, hyb.text.member_inputs(q)))
+            vg_i, bg_i = vg_i.cpu().numpy(), bg_i.cpu().numpy()[0]
+            for r in range(len(hq)):
+                fused = {}
+                for lst in (vg_i[r], bg_i):
+                    for rank, gid in enumerate(lst.tolist()):
+                        if gid >= 0:
+                            fused[gid] = fused.get(gid, np.float32(0)) + np.float32(1) / np.float32(60 + rank)
+                want = sorted(fused, key=lambda g: (-fused[g], list(fused).index(g)))[:TOP_K]
+                check(fi[r][: len(want)].tolist() == want, f"hybrid row {r} differs from the host RRF of its legs")
+            # the vector leg: recall@10 against the exact oracle over the aligned rows
+            allv = np.concatenate([np.pad(v, ((0, hyb.per_shard - v.shape[0]), (0, 0))) for v in hvecs])
+            sc = hq @ allv.T
+            for s in range(members):
+                sc[:, s * hyb.per_shard + n:(s + 1) * hyb.per_shard] = -np.inf
+            h_rec = mesh_recall(vg_i, np.argsort(-sc, axis=1)[:, :TOP_K])
+            check(h_rec >= RECALL_BAR, f"hybrid vector leg recall@10 {h_rec}")
+        hy_ms, _ = median_ms(lambda: hyb.search(hq, kq[0], TOP_K))
+        out["keyword"] = {"build_s": t_kw, "group_ms": tg_ms, "sequential_ms": ts_ms, "engine_ms": te_ms,
+                          "hybrid_ms": hy_ms, "hybrid_recall": h_rec}
+        print(f"mesh keyword: {members} shards of {n} paragraphs (written and opened in {t_kw:.1f}s); text group "
+              f"= the sequential engines on {len(reqs)} requests ({dispatched} dispatches), a request {tg_ms:.2f} ms "
+              f"against {ts_ms:.2f} ms sequential; sharded engine = the engines' merge up to ties on {len(kq)} "
+              f"queries, {te_ms:.2f} ms; hybrid of {len(hq)} x 1 = the host RRF of its merged legs, vector leg "
+              f"recall@10 {h_rec:.4f}, {hy_ms:.2f} ms", flush=True)
+        del tgroup, tmesh, hyb, engines, psearchers
+    finally:
+        os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- serving: search_multi over a node's 4 shards ---------------------
+    out["serving"] = mesh_serving(torch, slot_scan, tmp, cfg, device)
+    print(f"mesh numbers: {json.dumps(out)}", flush=True)
+    return launches
+
+
+def mesh_serving(torch, slot_scan, tmp, cfg, device):
+    """``search_multi`` over 4 shards of an ``EmbeddedNode``: the mesh branch
+    (the device listing replaced by the mesh's members, as the tests reach
+    it) against the per-shard path (``NDBTPU_MESH_SERVING=0``), on the
+    default keyword route and on the device route. A correctness smoke:
+    its times are of toy-size shards (the int8 threshold lowered) on a mesh
+    that repeats one card, where per-request host work dominates."""
+    import os
+
+    import nucliadb_tpu_torch.index.vector.device as vdevice
+    from nucliadb_tpu_torch.index.vector import VectorConfig
+    from nucliadb_tpu_torch.ops import bm25
+    from nucliadb_tpu_torch.parallel import mesh as pmesh
+    from nucliadb_tpu_torch.services import EmbeddedNode
+
+    members = cfg["members"]
+    ncfg = dict(NODE_FULL, resources=cfg["node_resources"], dim=DIM, delta=0, hybrid=cfg["node_requests"],
+                threaded=cfg["node_requests"], cpu=cfg["node_requests"])
+    corpus = NodeCorpus(torch, ncfg, device)
+    real_threshold, real_listing = vdevice.EXACT_SCAN_THRESHOLD, pmesh.visible_devices
+    vdevice.EXACT_SCAN_THRESHOLD = cfg["node_threshold"]
+    pmesh.visible_devices = lambda dev="cuda": [torch.device(device)] * members
+    out = {}
+    try:
+        node = EmbeddedNode(f"{tmp}/mesh_node", device=device)
+        sids = [node.create_shard("kb", {"m": VectorConfig(dimension=DIM)}, shard_id=f"mesh{s}") for s in range(members)]
+        t = time.perf_counter()
+        for r in range(corpus.R):
+            node.index(sids[r % members], corpus.resource(r))
+        while True:  # merge rounds until no job is left
+            stats = node.tick_background()
+            if stats["jobs_enqueued"] == 0 and stats["merged"] == 0:
+                break
+        node.wait_for_sync()
+        t_index = time.perf_counter() - t
+        for route in ("default", "device"):
+            if route == "device":
+                os.environ["NDBTPU_TEXT_HOST_TIER"] = "0"
+                node = EmbeddedNode(f"{tmp}/mesh_node", device=device)  # its searcher opens with the tier off
+            reqs = [node_hybrid(corpus, i) for i in range(cfg["node_requests"])]
+            os.environ["NDBTPU_MESH_SERVING"] = "0"
+            per_shard = [node.search_multi(sids, r) for r in reqs]
+            os.environ["NDBTPU_MESH_SERVING"] = "1"
+            node.search_multi(sids, reqs[0])  # builds the groups
+            reset_launches(slot_scan)
+            d0 = bm25.DISPATCHES.total()
+            t = time.perf_counter()
+            meshed = [node.search_multi(sids, r) for r in reqs]
+            wall = (time.perf_counter() - t) * 1e3 / len(reqs)
+            launches, dispatches = slot_scan.LAUNCHES.get("top2", 0), bm25.DISPATCHES.total() - d0
+            check(launches == members * len(reqs), f"{route}: search_multi's mesh branch launched {launches} top-2")
+            check(len(node.searcher._mesh_groups) == 1, f"{route}: no vector group cached")
+            # the device route's paragraph legs run as the text group (a
+            # dispatch a member), its document legs per shard; the default
+            # route's run on the host tier
+            device_route = route == "device"
+            check(dispatches >= members * len(reqs) if device_route else dispatches == 0,
+                  f"{route}: {dispatches} BM25 dispatches on the mesh branch")
+            check(len(node.searcher._mesh_text_groups) == int(device_route), f"{route}: text groups cached")
+            for a, b in zip(meshed, per_shard):
+                check(len(a) == len(b) == members, "search_multi: one response a shard")
+                for s, (x, y) in enumerate(zip(a, b)):
+                    node_same(x, y, 0.0, f"{route}: search_multi shard {s}, mesh against per shard")
+            t = time.perf_counter()
+            for r in reqs:
+                node.search_multi(sids, r)
+            os.environ["NDBTPU_MESH_SERVING"] = "0"
+            t_mid = time.perf_counter()
+            for r in reqs:
+                node.search_multi(sids, r)
+            per_ms = (time.perf_counter() - t_mid) * 1e3 / len(reqs)
+            mesh_ms = (t_mid - t) * 1e3 / len(reqs)
+            out[route] = {"launches": launches, "dispatches": dispatches, "mesh_ms": mesh_ms, "per_shard_ms": per_ms,
+                          "first_pass_ms": wall}
+        print(f"mesh serving: {corpus.R} resources x {corpus.P} paragraphs in {members} shards of one node "
+              f"(indexed, merged and synced in {t_index:.1f}s); search_multi's mesh branch equals the per-shard "
+              f"path on {cfg['node_requests']} hybrid requests on each keyword route; "
+              + "; ".join(f"{k}: {v['launches']} top-2 launches, {v['dispatches']} BM25 dispatches, "
+                          f"{v['mesh_ms']:.2f} ms a request (per shard {v['per_shard_ms']:.2f})" for k, v in out.items())
+              + " (toy-size shards on one card: not a serving measurement)",
+              flush=True)
+    finally:
+        vdevice.EXACT_SCAN_THRESHOLD, pmesh.visible_devices = real_threshold, real_listing
+        os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+        os.environ.pop("NDBTPU_MESH_SERVING", None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3614,8 +4079,10 @@ def main() -> None:
         del searcher
         torch.cuda.empty_cache()
         paged_launches = phase_paged(torch, slot_scan, binary_scan, corpus)
+        seconds["slices"], t = time.perf_counter() - t, time.perf_counter()
+        mesh_launches = phase_mesh(torch, slot_scan, corpus, tmp, MESH_FULL)
         corpus.free(torch)
-    seconds["slices"], t = time.perf_counter() - t, time.perf_counter()
+    seconds["mesh"], t = time.perf_counter() - t, time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         phase_keyword(torch, tmp, KW_FULL)
     seconds["keyword"], t = time.perf_counter() - t, time.perf_counter()
@@ -3684,6 +4151,9 @@ def main() -> None:
                # the host_rerank tier's counted path (phase_paged); MaxSim
                # (phase_multi) launches no slot scan
                "paged_launches": paged_launches if mode == "top2" else 0,
+               # the mesh vector group's counted path (phase_mesh: 4 members,
+               # a batch of 64 and one of 2048)
+               "mesh_launches": mesh_launches if mode == "top2" else 0,
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                # no single PyTorch call computes a slot table
                "library_ms": None, "share": bound_ms / k_ms}

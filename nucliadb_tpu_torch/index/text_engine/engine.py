@@ -27,10 +27,11 @@ Routing is the reference's cost model: scored queries go to the host WAND
 tier (``host_tier.py``) when it takes them, otherwise to the device
 program; pure filter queries stay on the host.
 
-Not ported yet (ROADMAP.md, Queue 1 items 10 and 15): the legacy
-single-arena program ``_bm25_search``/``_bm25_search_batch`` with
-``_device_inputs``, ``fixed_caps`` and the solo-group views, which only the
-mesh paths reach.
+The legacy single-arena program ``_bm25_search``/``_bm25_search_batch``
+(one arena of global doc ids, a base dense block and an optional overlay
+dense block) serves the mesh-sharded keyword and hybrid indexes
+(``parallel/text_mesh.py``, ``parallel/hybrid_mesh.py``) through the
+solo-group views, ``_device_inputs`` and ``fixed_caps``.
 """
 
 from __future__ import annotations
@@ -434,6 +435,10 @@ def _build_group(
             )
             g.term_info[term] = (-1, row, df)
         g.dense_dev = _dput(dense_m, device)
+    elif solo:
+        # single-group engines keep a [1, n_pad] placeholder so the legacy
+        # fixed layout (the mesh stackers) always has a dense operand
+        g.dense_dev = _dput(np.zeros((1, g.n_pad), np.uint8), device)
     return g
 
 
@@ -633,6 +638,35 @@ class DeviceTextEngine:
         for seg in self.segments:
             self.seg_bounds.append((run_lo, run_lo + seg.n_docs))
             run_lo += seg.n_docs
+
+    # ------------------------------------------------------------------
+    # legacy single-group views (the mesh stackers consume a full-built
+    # engine's arenas directly; those engines are exactly one solo group)
+    # ------------------------------------------------------------------
+
+    def _solo(self) -> _ArenaGroup:
+        assert len(self.groups) == 1, "single-group view on a multi-group engine"
+        return self.groups[0]
+
+    @property
+    def tiers(self):
+        return self._solo().tiers_dev
+
+    @property
+    def dense_tf(self):
+        return self._solo().dense_dev
+
+    @property
+    def dlen(self):
+        return self._solo().dl_dev
+
+    @property
+    def term_info(self):
+        return self._solo().term_info
+
+    @property
+    def terms_sorted(self):
+        return self._solo().terms_sorted
 
     # ------------------------------------------------------------------
     # vocabulary
@@ -1039,6 +1073,24 @@ class DeviceTextEngine:
         rows, idfs, scheduled = self._pack_slots(slots, caps)
         params = self._params_for(required, scheduled, query)
         return rows, idfs, params, caps
+
+    def _device_inputs(self, query: TextQuery):
+        """(rows, idfs, params, mask) fixed-caps inputs for one scored query
+        in the legacy single-arena layout (the mesh-sharded callers stack
+        solo-group engines and need the same shapes on every shard)."""
+        terms, required = self._plan_terms(query)
+        slots = self._plan_slots(terms)
+        caps = self.fixed_caps()
+        rows, idfs, scheduled = self._pack_slots(slots, caps)
+        params = self._params_for(required, scheduled, query)
+        return rows, idfs, params, self.build_mask(query)
+
+    def fixed_caps(self) -> tuple[int, ...]:
+        """The caps tuple of ``_device_inputs`` (non-adaptive, the legacy
+        [tiers..., dense, overlay dense] layout of a solo group)."""
+        g = self._solo()
+        assert g.widths == TIER_WIDTHS, "fixed caps need the full tier layout"
+        return tuple(TIER_QUERY_CAP) + (DENSE_QUERY_CAP, 0)
 
     def _group_tensors(self):
         """Device-program operands: per group (tiers, dense block, dlen)."""
@@ -1523,3 +1575,118 @@ def _build_tier_matrices(terms_sorted, group_offsets, pdocs, ptfs, widths, dl):
         for gid in np.nonzero(tier_idx == len(widths))[0]
     ]
     return tiers_np, term_info, dense_rows
+
+
+# --------------------------------------------------------------------------
+# The legacy single-arena program (the mesh-sharded indexes' keyword leg)
+# --------------------------------------------------------------------------
+
+
+def _bm25_arena(
+    tiers, dense_tf, odense_tf, dlen, masks, rows, idfs, params, k, caps,
+    odense_base, with_counts,
+):
+    """``_bm25_search`` for Q queries at once: ``rows``/``idfs`` [Q, W],
+    ``params`` [Q, 3], ``masks`` [n_pad] (shared) or [Q, n_pad].
+
+    The reference's one scatter of every tier's lanes becomes one
+    ``index_add_`` per slot in the same (tier, slot) order, with padding
+    and empty slots sent to a sink column ``n_pad`` that is sliced off (its
+    ``mode="drop"``; see ``ops/bm25.py``). The dense and overlay dense
+    slots add one at a time, as the reference's unrolled loops do. The
+    overlay window starts at ``odense_base`` clamped to ``[0, n_pad -
+    opad]``, as ``lax.dynamic_slice`` clamps it."""
+    n_tiers = len(tiers)
+    if len(caps) != n_tiers + 2:
+        raise ValueError(f"caps {caps} do not match {n_tiers} tiers + dense + overlay dense")
+    starts = np.concatenate([[0], np.cumsum(caps)]).tolist()
+    avgdl, required, min_score = params[:, 0], params[:, 1], params[:, 2]
+    n_pad = dlen.shape[0]
+    n_q = rows.shape[0]
+
+    parts = []
+    for t, (docs_m, tfs_m, dls_m) in enumerate(tiers):
+        lo, hi = starts[t], starts[t + 1]
+        if hi == lo:
+            continue
+        d, w, valid = bm25.tier_contrib(docs_m, tfs_m, dls_m, rows[:, lo:hi], idfs[:, lo:hi], avgdl)
+        parts.append((torch.where(valid, d.long(), n_pad), w, valid))
+    scores, counts = bm25.scatter_postings(parts, n_q, n_pad, with_counts, dlen.device)
+    scores = scores[:, :n_pad]
+    counts = counts[:, :n_pad] if with_counts else None
+
+    def dense_terms(block, dl, lo, hi, acc, acc_counts):
+        x = K1 * (1.0 - B + B * dl / avgdl[:, None])
+        for j in range(lo, hi):
+            row = rows[:, j]
+            tf = block[row.clamp_min(0).long()].float()
+            norm = tf * (K1 + 1.0) / (tf + x)
+            active = (row >= 0)[:, None] & (tf > 0)
+            acc = acc + torch.where(active, idfs[:, j, None] * norm, 0.0)
+            if acc_counts is not None:
+                acc_counts = acc_counts + active.float()
+        return acc, acc_counts
+
+    # dense (stopword-grade) terms: elementwise over the whole score row
+    scores, counts = dense_terms(dense_tf, dlen, starts[n_tiers], starts[n_tiers + 1], scores, counts)
+
+    # overlay dense terms: over the overlay's local columns, added into the
+    # score window [base, base + opad)
+    if odense_tf is not None and caps[-1] > 0:
+        opad = odense_tf.shape[1]
+        base = min(max(int(odense_base), 0), n_pad - opad)
+        zeros = torch.zeros((n_q, opad), dtype=torch.float32, device=dlen.device)
+        oscores, ocounts = dense_terms(
+            odense_tf, dlen[base : base + opad], starts[n_tiers + 1], starts[n_tiers + 2],
+            zeros, zeros.clone() if with_counts else None,
+        )
+        scores[:, base : base + opad] = scores[:, base : base + opad] + oscores
+        if with_counts:
+            counts[:, base : base + opad] = counts[:, base : base + opad] + ocounts
+
+    return bm25.cut(scores, counts, masks, required, min_score, k)
+
+
+def _bm25_search(
+    tiers, dense_tf, odense_tf, dlen, mask, all_rows, all_idfs, params, k,
+    caps, odense_base=0, with_counts=True,
+):
+    """One query over tiered postings and dense columns
+    (``nucliadb_tpu/index/text_engine/engine.py:1634``).
+
+    ``tiers``: (docs [T, W] i32, tfs [T, W] f32, dls [T, W] f32) posting
+    tiers of GLOBAL doc ids, the base tiers then any overlay tiers; ``caps``
+    the query-slot layout of ``all_rows``/``all_idfs``: one entry a posting
+    tier, then the base dense cap, then the overlay dense cap;
+    ``odense_tf`` the overlay's local dense block [R, opad] whose column j
+    is doc ``odense_base + j`` (None without an overlay). Returns (top
+    scores [k], [k ids | k counts] [2k], matched [n_pad])."""
+    bm25.DISPATCHES.add("arena")
+    top_s, top_ic, matched = _bm25_arena(
+        tiers, dense_tf, odense_tf, dlen, mask, all_rows[None], all_idfs[None],
+        params[None], k, caps, odense_base, with_counts,
+    )
+    return top_s[0], top_ic[0], matched[0]
+
+
+def _bm25_search_batch(
+    tiers, dense_tf, odense_tf, dlen, masks, all_rows, all_idfs, params, k,
+    caps, odense_base,
+    shared_mask: bool = False, count_only: bool = False,
+    with_counts: bool = True,
+):
+    """``_bm25_search`` over B queries stacked on axis 0 in one program
+    (``engine.py:1585``). ``shared_mask``: ``masks`` is one [n_pad] mask
+    for the whole batch; ``count_only``: the third output is [B] match
+    counts, not bitmaps; ``with_counts``: run the hit-count scatter (AND
+    semantics)."""
+    if shared_mask != (masks.dim() == 1):
+        raise ValueError(f"shared_mask={shared_mask} with masks of shape {tuple(masks.shape)}")
+    bm25.DISPATCHES.add("arena_batch")
+    top_s, top_ic, matched = _bm25_arena(
+        tiers, dense_tf, odense_tf, dlen, masks, all_rows, all_idfs, params, k,
+        caps, odense_base, with_counts,
+    )
+    if count_only:
+        return top_s, top_ic, matched.sum(dim=-1)
+    return top_s, top_ic, matched

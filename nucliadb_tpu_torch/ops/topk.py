@@ -101,3 +101,21 @@ def duplicate_id_mask(ids: torch.Tensor) -> torch.Tensor:
     c = ids.shape[-1]
     earlier = torch.ones((c, c), dtype=torch.bool, device=ids.device).tril(-1)
     return (same & earlier[None]).any(dim=-1) & (ids >= 0)
+
+
+def sharded_topk_allgather(
+    scores: "list[torch.Tensor]", ids: "list[torch.Tensor]", k: int, device=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge the members' ``[B, k]`` cuts of a mesh axis into one ``[B, k]``
+    cut (``nucliadb_tpu/ops/topk.py:68``, ``lax.all_gather(..., axis=-1,
+    tiled=True)`` then ``lax.top_k``). In one process the all-gather is a
+    copy of each member's cut to ``device`` (default: the first member's)
+    and a concatenation in member order along the last axis; the top-k
+    keeps ``lax.top_k``'s tie order, so among equal scores the earlier
+    member, then the earlier rank, wins."""
+    device = scores[0].device if device is None else torch.device(device)
+    all_s = torch.cat([s.to(device) for s in scores], dim=-1)  # [B, k * members]
+    all_i = torch.cat([i.to(device) for i in ids], dim=-1)
+    top_s, pos = top_k(all_s, k)
+    top_i = torch.gather(all_i, -1, pos)
+    return top_s, torch.where(top_s > NEG_INF / 2, top_i, -1)

@@ -2,11 +2,12 @@
 
 Counterpart of ``nucliadb_tpu/services/searcher.py`` with an explicit torch
 ``device`` for every shard searcher it opens. The sync loop, the LRU with
-single-flight loads and the refresh through ``prev`` are the JAX
-package's. ``search_multi`` takes the concurrent per-shard path; the mesh
-groups that run co-resident shards as one sharded program
-(``parallel/group.py``, ``parallel/text_group.py`` there) are not ported
-(ROADMAP.md, Queue 1 item 15), and a request that would take them raises.
+single-flight loads, the refresh through ``prev`` and ``search_multi``
+are the JAX package's: when more than one card is visible
+(``parallel.group.mesh_serving_active``), the vector and keyword legs of
+co-resident shards each run as one mesh program (``parallel/group.py``,
+``parallel/text_group.py``), with the same responses as the concurrent
+per-shard path it otherwise takes.
 
 Parity: nidx/src/searcher/ (SyncedSearcher, sync.rs:57-219,
 index_cache.rs) — watches indexes' updated_at, diffs the desired segment
@@ -27,6 +28,7 @@ import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from ..index.vector.config import VectorConfig
@@ -37,19 +39,12 @@ from ..storage.storage import download_segment
 from ..types import SegmentMetadata, SimpleOpenIndex
 from ..utils.platform import resolve_device
 
-# per-shard fan-out of search_multi. A DEDICATED pool (not the shard
-# searcher's _INDEX_POOL): each task submits paragraph/document legs into
-# that pool, and sharing one pool would let a full set of outer tasks
-# starve the inner ones (nested-submit deadlock).
-_SHARD_POOL = ThreadPoolExecutor(max_workers=16, thread_name_prefix="shardfan")
-
-
-def mesh_serving_wanted(device: torch.device) -> bool:
-    """True where the JAX package's ``mesh_serving_active()`` would be: more
-    than one card visible and ``NDBTPU_MESH_SERVING`` not "0"."""
-    if os.environ.get("NDBTPU_MESH_SERVING", "1") == "0":
-        return False
-    return device.type == "cuda" and torch.cuda.device_count() > 1
+# per-shard fan-out of search_multi, and of the non-vector legs of its mesh
+# path. A DEDICATED pool (not the shard searcher's _INDEX_POOL): each task
+# submits paragraph/document legs into that pool, and sharing one pool
+# would let a full set of outer tasks starve the inner ones (nested-submit
+# deadlock).
+_MESH_SHARD_POOL = ThreadPoolExecutor(max_workers=16, thread_name_prefix="meshshard")
 
 
 class SyncedSearcher:
@@ -83,6 +78,12 @@ class SyncedSearcher:
         # nidx/src/searcher/sync.rs + shard_selector)
         self.selector = selector
         self.node_name = node_name
+        # mesh serving: cached MeshVectorGroups keyed by (shard ids,
+        # vectorset); an entry is stale once a member shard reloads (the
+        # stored identity tuple no longer matches the live searchers)
+        self._mesh_groups: "OrderedDict[tuple, tuple[tuple, object]]" = OrderedDict()
+        # its keyword half: MeshTextGroups keyed by shard ids, the same way
+        self._mesh_text_groups: "OrderedDict[tuple, tuple[tuple, object]]" = OrderedDict()
 
     def _owns(self, shard_id: str) -> bool:
         if self.selector is None or self.node_name is None:
@@ -233,19 +234,222 @@ class SyncedSearcher:
     def search(self, shard_id: str, request: ShardSearchRequest) -> ShardSearchResponse:
         return self.shard(shard_id).search(request)
 
+    # ------------------------------------------------------------------
+    # Mesh serving path (parity: the reference's in-process multi-shard
+    # parallel query, nidx/src/searcher/shards_query.rs:29-72 — here the
+    # co-resident shards' vector legs run as ONE mesh program, see
+    # parallel/group.py)
+    # ------------------------------------------------------------------
+
+    def _mesh_group(self, shard_ids: tuple, vs_name: str, vsearchers: list):
+        from ..parallel.group import MeshVectorGroup
+
+        key = (shard_ids, vs_name)
+        ident = tuple((id(v.index), v.index._seg_sig) for v in vsearchers)
+        cached = self._mesh_groups.get(key)
+        if cached is not None and cached[0] == ident:
+            self._mesh_groups.move_to_end(key)
+            return cached[1]
+        if not MeshVectorGroup.eligible(vsearchers):
+            return None
+        group = MeshVectorGroup(vsearchers)
+        self._mesh_groups[key] = (ident, group)
+        self._mesh_groups.move_to_end(key)
+        while len(self._mesh_groups) > 8:
+            self._mesh_groups.popitem(last=False)
+        return group
+
+    def _search_many(
+        self, shard_ids: "list[str]", request: ShardSearchRequest
+    ) -> "list[ShardSearchResponse]":
+        """Concurrent per-shard fan-out: the multi-shard path whenever the
+        mesh group is not usable. Parity: the reference runs shard queries
+        concurrently (nidx/src/searcher/shards_query.rs:29-72)."""
+        if len(shard_ids) <= 1:
+            return [self.search(s, request) for s in shard_ids]
+        futures = [_MESH_SHARD_POOL.submit(self.search, s, request) for s in shard_ids]
+        return [f.result() for f in futures]
+
     def search_multi(
         self, shard_ids: "list[str]", request: ShardSearchRequest
     ) -> "list[ShardSearchResponse]":
-        """Search several shards concurrently, one task per shard. Parity:
-        the reference runs shard queries concurrently
-        (nidx/src/searcher/shards_query.rs:29-72)."""
-        if len(shard_ids) > 1 and request.vector is not None and mesh_serving_wanted(self.device):
-            raise NotImplementedError(
-                "multi-shard search over more than one card runs the mesh groups, which are "
-                "not ported yet (ROADMAP.md, Queue 1 item 15); set NDBTPU_MESH_SERVING=0 "
-                "for the per-shard path"
+        """Search several shards; when more than one card is visible,
+        co-resident shards' vector AND keyword legs each run as one mesh
+        program (parallel/group.py, parallel/text_group.py): a hybrid /find
+        over any number of co-resident shards runs at most 2 mesh programs.
+        Each leg falls back to the concurrent per-shard path whenever its
+        group is not eligible (mixed configs, ivf/hnsw/pallas flags, binary
+        codes, paged arenas, a missing vectorset; phrase queries, cursors
+        or mismatched engine layouts for the keyword leg). The responses
+        are the same either way: the vector group selects int8 candidates
+        through the same ``_int8_candidates`` as the per-shard path (the
+        top-2 slot kernel on the card) and the text group runs the same
+        BM25 program per shard (see both modules' parity contracts). No
+        dispatching thread waits for the whole card: each fetch waits for
+        its own thread's stream."""
+        from ..parallel.group import mesh_serving_active
+
+        if (
+            len(shard_ids) <= 1
+            or request.vector is None
+            or not mesh_serving_active(self.device)
+        ):
+            return self._search_many(shard_ids, request)
+        from ..index.vector import VectorSearchRequest
+        from ..types import PrefilterResult
+
+        searchers = [self.shard(s) for s in shard_ids]
+        vs_name = request.vectorset or next(iter(searchers[0].vectors), "")
+        vsearchers = [sh.vectors.get(vs_name) for sh in searchers]
+        if any(v is None for v in vsearchers):
+            return self._search_many(shard_ids, request)
+        group = self._mesh_group(tuple(shard_ids), vs_name, vsearchers)
+        if group is None:
+            return self._search_many(shard_ids, request)
+
+        # per-shard prefilters (host: text ∧ json engines), then the same
+        # filter-to-mask pipeline VectorSearcher.search runs
+        prefilters = [
+            sh.compute_prefilter(request)
+            if sh._needs_prefilter(request)
+            else PrefilterResult.all()
+            for sh in searchers
+        ]
+        q = np.asarray(request.vector, np.float32)
+        # [D] -> [1, D]; a multivector query [M, D] -> [1, M, D] (the group
+        # runs MaxSim per shard — parallel/group.py _group_search_multi)
+        q = q.reshape(1, -1) if q.ndim == 1 else q[None]
+        masks = []
+        for vs, pf in zip(vsearchers, prefilters):
+            combined = vs.index.base_mask()
+            if pf.is_none:
+                combined[:] = False
+            else:
+                vreq = VectorSearchRequest(
+                    vectors=q,
+                    top_k=request.top_k,
+                    filter=request.filter,
+                    field_filter=pf,
+                    key_prefixes=list(request.key_filters) or None,
+                    min_score=request.min_score_semantic,
+                    include_hidden=request.include_hidden,
+                    with_duplicates=request.with_duplicates,
+                    filter_operator=request.leg_filter_operator,
+                )
+                m = vs._build_mask(vreq)
+                if m is not None:
+                    full = np.zeros(vs.index.p_pad, bool)
+                    full[: m.shape[0]] = m[: vs.index.p_pad]
+                    combined &= full
+            masks.append(combined)
+
+        scores, ids = group.search(
+            q,
+            request.top_k,
+            masks,
+            min_score=request.min_score_semantic,
+            with_duplicates=request.with_duplicates,
+        )
+
+        # keyword legs: one mesh program for every co-resident shard (None
+        # entries: that shard runs its paragraph leg per shard)
+        para_results = self._mesh_paragraph_legs(
+            tuple(shard_ids), searchers, request, prefilters
+        )
+
+        futures = []
+        for i, (sh, vs, pf) in enumerate(zip(searchers, vsearchers, prefilters)):
+            if pf.is_none:
+                # parity with the per-shard path: an empty prefilter clears
+                # every downstream leg of that shard
+                futures.append(ShardSearchResponse(prefilter=pf))
+                continue
+            vhits = vs.index.hits(scores[i, 0], ids[i, 0])
+            futures.append(
+                _MESH_SHARD_POOL.submit(
+                    sh.search, request, prefilter=pf, vector_hits=vhits,
+                    paragraph_response=para_results[i],
+                )
             )
-        if len(shard_ids) <= 1:
-            return [self.search(s, request) for s in shard_ids]
-        futures = [_SHARD_POOL.submit(self.search, s, request) for s in shard_ids]
-        return [f.result() for f in futures]
+        return [f if isinstance(f, ShardSearchResponse) else f.result() for f in futures]
+
+    def _mesh_paragraph_legs(
+        self, shard_ids: tuple, searchers: list, request: ShardSearchRequest,
+        prefilters: list,
+    ) -> "list":
+        """Run every co-resident shard's paragraph (BM25) leg as ONE mesh
+        program (parallel/text_group.py). Returns one ParagraphSearchResponse
+        per shard, or all None where the group path does not apply —
+        phrase queries, deep-pagination cursors and layout-mismatched
+        engines run through the per-shard path with the same results
+        (parity: nidx/src/searcher/shard_search.rs:211-273 runs every leg
+        inside the per-shard fan-out)."""
+        none: list = [None] * len(searchers)
+        if not (request.paragraph and request.body.strip()):
+            return none
+        psearchers = [sh.paragraph for sh in searchers]
+        if all(
+            p is not None and p.engine.host_tier() is not None
+            for p in psearchers
+        ):
+            # cost-model routing: with the host WAND tier active, each
+            # shard's keyword leg runs on the host inside the per-shard
+            # fan-out, beside the vector group program on the device (the
+            # reference's own split: tantivy on the CPU, shard_search.rs)
+            return none
+        group = self._mesh_text_group(shard_ids, psearchers)
+        if group is None:
+            return none
+        from ..index.paragraph import ParagraphSearchRequest
+
+        preqs, queries, active = [], [], 0
+        for p, pf in zip(psearchers, prefilters):
+            if pf.is_none:
+                preqs.append(None)
+                queries.append(None)
+                continue
+            preq = ParagraphSearchRequest(
+                query=request.body,
+                top_k=request.top_k,
+                filter=request.filter,
+                field_filter=pf,
+                key_prefixes=list(request.key_filters) or None,
+                min_score=request.min_score_bm25,
+                all_terms=request.all_terms,
+                advanced_query=request.advanced_query,
+                search_after=request.search_after,
+                filter_operator=request.leg_filter_operator,
+            )
+            q = p.plan_kernel_query(preq)
+            if q is None:
+                return none  # a miss of the simple regime: per shard for all
+            preqs.append(preq)
+            queries.append(q)
+            active += 1
+        if active == 0:
+            return none
+        top_s, top_ic, counts = group.search(queries, request.top_k)
+        return [
+            None if q is None
+            else p.finish_kernel(preq, q, top_s[i], top_ic[i], int(counts[i]))
+            for i, (p, preq, q) in enumerate(zip(psearchers, preqs, queries))
+        ]
+
+    def _mesh_text_group(self, shard_ids: tuple, psearchers: list):
+        from ..parallel.text_group import MeshTextGroup
+
+        if any(p is None for p in psearchers):
+            return None
+        ident = tuple((id(p.engine), p.engine.n_docs) for p in psearchers)
+        cached = self._mesh_text_groups.get(shard_ids)
+        if cached is not None and cached[0] == ident:
+            self._mesh_text_groups.move_to_end(shard_ids)
+            return cached[1]
+        if not MeshTextGroup.eligible(psearchers):
+            return None
+        group = MeshTextGroup(psearchers)
+        self._mesh_text_groups[shard_ids] = (ident, group)
+        self._mesh_text_groups.move_to_end(shard_ids)
+        while len(self._mesh_text_groups) > 8:
+            self._mesh_text_groups.popitem(last=False)
+        return group

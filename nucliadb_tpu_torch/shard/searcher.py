@@ -317,18 +317,29 @@ class ShardSearcher:
             return True  # no vector leg to dispatch at all
         return searcher.index.host_resident()
 
-    def search(self, request: ShardSearchRequest) -> ShardSearchResponse:
-        """Run every leg the request asks for against this shard. (The JAX
-        package's ``prefilter``/``vector_hits``/``paragraph_response``
-        arguments carry the mesh groups' precomputed legs; the mesh path is
-        not ported, ROADMAP.md Queue 1 item 15.)"""
+    def search(
+        self,
+        request: ShardSearchRequest,
+        *,
+        prefilter: "PrefilterResult | None" = None,
+        vector_hits: "list[VectorHit] | None" = None,
+        paragraph_response: "ParagraphSearchResponse | None" = None,
+    ) -> ShardSearchResponse:
+        """Run every leg the request asks for against this shard.
+
+        ``prefilter``/``vector_hits``/``paragraph_response`` are the mesh
+        serving path's precomputed pieces (``services/searcher.py``
+        ``search_multi``): the group programs already ran the vector and
+        keyword legs of every co-resident shard, so this call runs only the
+        remaining legs, against the SAME prefilter their masks used."""
         response = ShardSearchResponse()
 
-        prefilter = (
-            self.compute_prefilter(request)
-            if self._needs_prefilter(request)
-            else PrefilterResult.all()
-        )
+        if prefilter is None:
+            prefilter = (
+                self.compute_prefilter(request)
+                if self._needs_prefilter(request)
+                else PrefilterResult.all()
+            )
         response.prefilter = prefilter
         if prefilter.is_none:
             # empty prefilter clears every downstream query
@@ -413,7 +424,18 @@ class ShardSearcher:
             request.paragraph and request.body.strip() and self.paragraph is not None
         )
         want_vector = request.vector is not None
-        if want_paragraph and want_vector:
+        if vector_hits is not None and want_vector:
+            # the vector leg already ran (the group program): no device
+            # program left to overlap, so the paragraph leg runs inline
+            # (or, when the mesh text group ran it too, not at all)
+            response.vector = vector_hits
+            if want_paragraph:
+                response.paragraph = (
+                    paragraph_response
+                    if paragraph_response is not None
+                    else run_paragraph()
+                )
+        elif want_paragraph and want_vector:
             if self._legs_host_resident(request):
                 # both legs serve from host tiers: no device program to
                 # overlap, and the thread handoff is pure overhead — inline

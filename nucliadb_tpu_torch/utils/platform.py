@@ -72,7 +72,13 @@ def thread_stream(device: "str | torch.device") -> "torch.cuda.Stream | None":
     if stream is None:
         stream = streams[index] = torch.cuda.Stream(device=index)
         stream.wait_stream(torch.cuda.current_stream(index))
+        # set_stream also makes the stream's card the thread's current
+        # device; keep the caller's, or tensors later made on a device
+        # without an index ("cuda") would land on this card
+        current = torch.cuda.current_device()
         torch.cuda.set_stream(stream)
+        if torch.cuda.current_device() != current:
+            torch.cuda.set_device(current)
     return stream
 
 

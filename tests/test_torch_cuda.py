@@ -705,3 +705,163 @@ def test_cuda_stream_tier_equals_the_cpu(tmp_path, monkeypatch):
     _refuse_synchronize(monkeypatch)
     for kw in (dict(), dict(with_duplicates=False), dict(min_score=1.0)):
         assert_same_results(*cpu.index.search(q, 10, **kw), *gpu.index.search(q, 10, **kw))
+
+
+def test_cuda_group_equals_sequential_with_uneven_members(tmp_path, monkeypatch):
+    """The mesh vector group on a 4-member mesh of one card, over three
+    shards of uneven size (p_pad 6,144, 4,096 and 12,288): each member
+    launches the top-2 kernel once over its shard's own arena, and every cut
+    (plain, filtered, floored, deduplicated) equals the shard's own
+    ``search`` bit for bit, with ``torch.cuda.synchronize`` made to raise."""
+    _need_card()
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.index.vector import Elem, Seq, SimpleOpenIndex, VectorConfig, VectorSearcher, create_segment
+    from nucliadb_tpu_torch.parallel.group import MeshVectorGroup
+    from nucliadb_tpu_torch.parallel.mesh import Mesh
+
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(26)
+    cfg = VectorConfig(dimension=128)
+    searchers = []
+    for s, n in enumerate((5000, 1200, 9000)):
+        v = rng.standard_normal((n, 128)).astype(np.float32)
+        v[1] = v[0]  # a duplicate for the dedup
+        elems = [Elem(key=f"s{s}r{i % 7}/f/{i}/0-1", vectors=v[i], labels=["/l/a"] if i % 3 else []) for i in range(n)]
+        meta = create_segment(str(tmp_path / f"s{s}"), elems, cfg, device="cpu")
+        idx = SimpleOpenIndex(segment_list=[(meta, Seq(1))], deletion_list=[(f"s{s}r3/", Seq(2))])
+        searchers.append(VectorSearcher(cfg, idx, device="cuda"))
+    assert [vs.index.p_pad for vs in searchers] == [6144, 4096, 12288]
+    group = MeshVectorGroup(searchers, Mesh([torch.device("cuda", 0)] * 4, ("shard",)))
+    assert group.use_codes and group.s_pad == 4 and group.device_bytes == 0
+    q = rng.standard_normal((40, 128)).astype(np.float32)
+    q[0] = searchers[0].index.vectors[0].cpu().numpy()
+    _refuse_synchronize(monkeypatch)
+    for kw in (dict(), dict(min_score=1.0), dict(with_duplicates=False), dict(label=True)):
+        masks, filt = [], []
+        for vs in searchers:
+            m = None
+            if kw.get("label"):
+                m = np.zeros(vs.index.n_para, bool)
+                m[vs.index.label_postings("/l/a")] = True
+            combined = vs.index.base_mask()
+            if m is not None:
+                combined[: m.shape[0]] &= m
+            masks.append(combined)
+            filt.append(m)
+        opts = {k: v for k, v in kw.items() if k != "label"}
+        launches = slot_scan.LAUNCHES["top2"]
+        gs, gi = group.search(q, 10, masks, **opts)
+        assert slot_scan.LAUNCHES["top2"] == launches + 3
+        for si, vs in enumerate(searchers):
+            es, ei = vs.index.search(q, 10, para_mask=filt[si], **opts)
+            np.testing.assert_array_equal(gi[si], ei)
+            assert np.array_equal(gs[si].view(np.int32), es.view(np.int32)), (kw, si)
+
+
+def test_cuda_threaded_search_multi_on_a_two_member_mesh(tmp_path, monkeypatch):
+    """``search_multi`` over two shards takes the mesh branch (the device
+    listing replaced by two members of one card) from 8 threads with
+    ``torch.cuda.synchronize`` made to raise: every answer equals its solo
+    answer and the per-shard path's (``NDBTPU_MESH_SERVING=0``), and the
+    top-2 kernel launches once a shard a request."""
+    _need_card()
+    from concurrent.futures import ThreadPoolExecutor
+
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.index.vector import VectorConfig
+    from nucliadb_tpu_torch.parallel import mesh as pmesh
+    from nucliadb_tpu_torch.services import EmbeddedNode
+
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
+    monkeypatch.setattr(pmesh, "visible_devices", lambda device="cuda": [torch.device("cuda", 0)] * 2)
+    rng = np.random.default_rng(27)
+    vecs = rng.standard_normal((3000, 128)).astype(np.float32)
+    node = EmbeddedNode(str(tmp_path / "node"), device="cuda")
+    sids = [node.create_shard("kb", {"m": VectorConfig(dimension=128)}, shard_id=f"s{i}") for i in range(2)]
+    _index_resources(node, sids[0], rng, vecs, range(15))
+    _index_resources(node, sids[1], rng, vecs, range(15, 30))
+    node.tick_background()
+    node.wait_for_sync()
+    reqs = [_hybrid_request(vecs, i) for i in range(24)]
+    monkeypatch.setenv("NDBTPU_MESH_SERVING", "0")
+    per_shard = [node.search_multi(sids, r) for r in reqs]
+    monkeypatch.setenv("NDBTPU_MESH_SERVING", "1")
+    launches = slot_scan.LAUNCHES["top2"]
+    solo = [node.search_multi(sids, r) for r in reqs]
+    assert slot_scan.LAUNCHES["top2"] == launches + 2 * len(reqs)
+    assert len(node.searcher._mesh_groups) == 1
+    _refuse_synchronize(monkeypatch)
+    with ThreadPoolExecutor(8) as pool:
+        threaded = list(pool.map(lambda r: node.search_multi(sids, r), reqs))
+    for got, want, seq in zip(threaded, solo, per_shard):
+        for g, w, p in zip(got, want, seq):
+            _assert_same_legs(g, w)
+            _assert_same_legs(g, p)
+
+
+def test_cuda_mesh_over_every_visible_card(tmp_path, monkeypatch):
+    """The mesh as a machine with several cards serves it, nothing replaced:
+    the vector and text groups' members on ``cuda:0..n-1`` (copies of
+    arenas opened on ``cuda:0``, the cuts copied back to ``cuda:0``), the
+    sharded index over all cards, and ``search_multi``'s mesh branch, which
+    the serving gate opens only when more than one card is visible. Every
+    cut equals the shards' own searches on ``cuda:0``; on one card the mesh
+    has one member and ``search_multi`` stays per shard."""
+    _need_card()
+    import nucliadb_tpu_torch.index.vector.device as device
+    from nucliadb_tpu_torch.index.vector import VectorConfig
+    from nucliadb_tpu_torch.parallel import MeshShardedVectorIndex, make_mesh
+    from nucliadb_tpu_torch.parallel.group import MeshVectorGroup, mesh_serving_active
+    from nucliadb_tpu_torch.services import EmbeddedNode
+
+    n_cards = torch.cuda.device_count()
+    monkeypatch.setattr(device, "EXACT_SCAN_THRESHOLD", 1024)
+    monkeypatch.setenv("NDBTPU_TEXT_HOST_TIER", "0")  # the text group runs on the cards too
+    rng = np.random.default_rng(28)
+    vecs = rng.standard_normal((4800, 128)).astype(np.float32)
+    node = EmbeddedNode(str(tmp_path / "node"), device="cuda")
+    sids = [node.create_shard("kb", {"m": VectorConfig(dimension=128)}, shard_id=f"s{i}") for i in range(4)]
+    for s in range(4):  # 1,200 paragraphs a shard: above the lowered threshold, the int8 route
+        _index_resources(node, sids[s], rng, vecs, range(12 * s, 12 * s + 12))
+    node.tick_background()
+    node.wait_for_sync()
+    assert mesh_serving_active("cuda") == (n_cards > 1)
+    reqs = [_hybrid_request(vecs, i) for i in range(8)]
+    monkeypatch.setenv("NDBTPU_MESH_SERVING", "0")
+    per_shard = [node.search_multi(sids, r) for r in reqs]
+    monkeypatch.setenv("NDBTPU_MESH_SERVING", "1")
+    launches = slot_scan.LAUNCHES["top2"]
+    meshed = [node.search_multi(sids, r) for r in reqs]
+    if n_cards > 1:  # the group: a launch a member (the per-shard path may coalesce)
+        assert slot_scan.LAUNCHES["top2"] == launches + 4 * len(reqs)
+    # the members' streams leave the thread's current card as it was, so a
+    # later index on "cuda" (no index) still finds its tensors there
+    assert torch.cuda.current_device() == 0
+    assert len(node.searcher._mesh_groups) == int(n_cards > 1)
+    assert len(node.searcher._mesh_text_groups) == int(n_cards > 1)
+    for got, want in zip(meshed, per_shard):
+        for g, w in zip(got, want):
+            _assert_same_legs(g, w)
+
+    searchers = [node.searcher.shard(s).vectors["m"] for s in sids]
+    group = MeshVectorGroup(searchers)
+    # shard_map's blocks: ceil(4 / n) members a card
+    assert [d.index for d in group.devices] == [i // -(-4 // n_cards) for i in range(4)]
+    q = rng.standard_normal((24, 128)).astype(np.float32)
+    launches = slot_scan.LAUNCHES["top2"]
+    gs, gi = group.search(q, 10, [vs.index.base_mask() for vs in searchers])
+    assert slot_scan.LAUNCHES["top2"] == launches + 4
+    for si, vs in enumerate(searchers):
+        es, ei = vs.index.search(q, 10)
+        np.testing.assert_array_equal(gi[si], ei)
+        assert np.array_equal(gs[si].view(np.int32), es.view(np.int32))
+
+    mesh = make_mesh(device="cuda")
+    assert mesh.shape == {"shard": n_cards, "query": 1}
+    idx = MeshShardedVectorIndex(vecs, mesh)
+    s_, i_ = idx.search(q, 10)
+    ref = q.astype(np.float64) @ vecs.astype(np.float64).T
+    for r in range(len(q)):
+        want = np.argsort(-ref[r], kind="stable")[:10]
+        assert set(i_[r].tolist()) == set(want.tolist())
+        np.testing.assert_allclose(s_[r], ref[r][i_[r]], rtol=1e-4)

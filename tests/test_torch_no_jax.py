@@ -1,6 +1,8 @@
 """The port never imports jax or the JAX package, and never moves a CUDA
 request to the CPU: its vector and keyword legs, its index node, its
-product layer's /find and its standalone server answering /find over HTTP.
+product layer's /find, its standalone server answering /find over HTTP and
+its mesh (the sharded indexes, the groups and ``search_multi``'s mesh
+branch).
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter.
@@ -151,6 +153,46 @@ _SCRIPT = textwrap.dedent(
         node.wait_for_sync()
         found = SearchService(node, kbs, processor).find(kbid, FindRequest(query=body, vector=v[3, :16].tolist(), top_k=4))
     assert found.best_matches[0].startswith(rids[3]) and found.resources[rids[3]].title == "doc 3", found
+
+    # the mesh: a sharded index and a hybrid index on 4 members repeating
+    # the CPU, a vector group and search_multi's mesh branch with the
+    # device listing replaced (one CPU does not turn mesh serving on)
+    import torch
+    from nucliadb_tpu_torch.parallel import MeshHybridIndex, MeshShardedVectorIndex, make_mesh
+    from nucliadb_tpu_torch.parallel import group as pgroup, mesh as pmesh
+
+    mesh = make_mesh(4, device="cpu")
+    vs = rng.standard_normal((200, 16)).astype(np.float32)
+    vs /= np.linalg.norm(vs, axis=1, keepdims=True)
+    s_, i_ = MeshShardedVectorIndex(vs, mesh, quantize=True).search(vs[[5, 150]], 3)
+    assert i_[:, 0].tolist() == [5, 150], i_
+    assert not pgroup.mesh_serving_active("cpu")
+    with tempfile.TemporaryDirectory() as d:
+        from nucliadb_tpu_torch.index.text_engine.engine import DeviceTextEngine
+        from nucliadb_tpu_torch.index.text_engine.builder import open_text_segment
+        shards = []
+        for s in range(4):
+            seg = build_segment(f"{d}/h{s}", docs[s * 10 : (s + 1) * 10], kind="text")
+            shards.append((vs[s * 10 : (s + 1) * 10], DeviceTextEngine([(open_text_segment(seg.path), Seq(1))], device="cpu")))
+        fs, fi = MeshHybridIndex(shards, mesh).search(vs[[12]], TextQuery(text="alpha", top_k=4), 4)
+    assert fs.shape == (1, 4) and (fi >= 0).any(), fi
+    pmesh.visible_devices = lambda device="cuda": [torch.device("cpu")] * 2
+    assert pgroup.mesh_serving_active("cpu")
+    with tempfile.TemporaryDirectory() as d:
+        node = EmbeddedNode(d, storage=MemoryStorage(), device="cpu")
+        sids = [node.create_shard("kb", {"m": VectorConfig(dimension=16)}) for _ in range(2)]
+        for i in range(6):
+            text = " ".join(rng.choice(words, 5))
+            rd = ResourceDoc(resource_id=f"r{i}", created=i, modified=i)
+            rd.texts["t/t"] = TextInformation(text=text)
+            para = IndexParagraph(start=0, end=len(text))
+            para.vectorsets_sentences["m"] = {f"r{i}/t/t/0/0-{len(text)}": VectorSentence(vector=v[i, :16])}
+            rd.paragraphs["t/t"] = {f"r{i}/t/t/0-{len(text)}": para}
+            node.index(sids[i % 2], rd)
+        node.wait_for_sync()
+        resps = node.search_multi(sids, ShardSearchRequest(body=text, vector=v[5, :16], top_k=3))
+        assert len(node.searcher._mesh_groups) == 1
+    assert resps[1].vector[0].key.startswith("r5/"), resps
     _no_jax_loaded()
     print("OK")
     """
@@ -250,7 +292,10 @@ def test_port_sources_name_no_jax_package_import():
         "nucliadb_tpu_torch/migrator/migrations.py", "nucliadb_tpu_torch/train/dataset.py",
         "nucliadb_tpu_torch/common/export_import.py", "nucliadb_tpu_torch/utils/warmup.py",
         "nucliadb_tpu_torch/ops/hnsw.py", "nucliadb_tpu_torch/ops/ivf.py",
-        "nucliadb_tpu_torch/tools/hnsw_build_bench.py",
+        "nucliadb_tpu_torch/tools/hnsw_build_bench.py", "nucliadb_tpu_torch/ops/fusion.py",
+        "nucliadb_tpu_torch/parallel/__init__.py", "nucliadb_tpu_torch/parallel/mesh.py",
+        "nucliadb_tpu_torch/parallel/group.py", "nucliadb_tpu_torch/parallel/text_group.py",
+        "nucliadb_tpu_torch/parallel/text_mesh.py", "nucliadb_tpu_torch/parallel/hybrid_mesh.py",
     } <= names
     offending = [
         f"{path.relative_to(REPO)}:{text[:m.start()].count(chr(10)) + 1}"
@@ -286,6 +331,10 @@ def test_cuda_request_without_a_card_raises(tmp_path):
     para = build_segment(str(tmp_path / "p"), [DocEntry(key="r/0", text="alpha")], kind="paragraph")
     with pytest.raises(RuntimeError, match="cuda"):
         ParagraphSearcher(SimpleOpenIndex(segment_list=[(para, Seq(1))]), device="cuda")
+    from nucliadb_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="cuda"):  # a mesh of cards, never quietly of the CPU
+        make_mesh(4)
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     with pytest.raises(ValueError):
