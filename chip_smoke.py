@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 It drives the port's vector-search paths, the semantic leg of /find, its
 keyword leg, the index node, the product /find, the standalone HTTP
 server, the opt-in ANN strategies, the beyond-HBM paged tiers,
-multivector MaxSim and the mesh (the multi-shard groups and the
-mesh-sharded indexes) once at full size, in phases that each print one
-line:
+multivector MaxSim, the mesh (the multi-shard groups and the
+mesh-sharded indexes) and component mode (the substrate, the gRPC planes
+and the cluster's scatter-gather over searcher processes) once at full
+size, in phases that each print one line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
@@ -219,10 +220,37 @@ line:
    the mesh branch's responses equal the per-shard path's, 4 top-2 launches
    a request.
 
+13. cluster: (after the HTTP phase, over the same files) component mode,
+   each component a process of the port's runner (``python -m
+   nucliadb_tpu_torch.component.run``): S, ``substrate --serve-substrate``
+   over the /find phase's metadata, blobs and maindb (linked where the
+   substrate opens them; the default ``--device cuda``, which a
+   substrate-only process never resolves); W, ``writer ingest scheduler
+   worker --substrate S --device cuda``; C1 and C2, ``searcher --substrate
+   S --topology FILE --node-name c1|c2 --device cuda``, each with its own
+   data directory, both owning the shard (replication 2). Each child
+   reports its launch counters and CUDA state on SIGUSR1. Seconds until
+   each replica answers (its sync of 136,000 paragraphs over the
+   substrate included); counted: the node phase's 64 hybrid requests
+   through ``DistributedSearcher`` (a ``TopologyWatcher`` over the same
+   file, one ``NodeClient`` a replica), each equal to an in-process
+   ``EmbeddedNode(tmp/node, device="cuda")``'s answer (ties, scores within
+   1e-5), vector recall@10 >= 0.95 against the exact f32 oracle; the
+   top-2 kernel launched once a vector leg in the primary replica and
+   never in the other; one request over ``NidxSearcher``'s protobuf wire
+   equal to its msgpack answer; the 64 from 8 client threads, each its
+   solo answer; ``nvidia-smi``'s compute apps (the substrate process
+   holds no CUDA context); the primary SIGKILLed after 16 answers of a
+   threaded burst: every request answered by the other (its launches
+   grow), no ``ShardError``, the same answers, the slowest request
+   across the kill; a resource written through ``WriterClient`` until it
+   is the top hit, under a deadline; client p50/p90 against the
+   in-process node's, the gRPC layer's ms, each process's boot seconds.
+
 It then prints each phase's wall seconds, the kernels' JSON line (each
-kernel's launches on its path and on the node, /find, HTTP, paged and
-mesh phases' counted paths, times, bound from this run's shapes and its
-share of it)
+kernel's launches on its path and on the node, /find, HTTP, paged, mesh
+and cluster phases' counted paths, times, bound from this run's shapes
+and its share of it)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
@@ -2969,7 +2997,7 @@ def phase_find(torch, tmp, cfg, device="cuda"):
     if device == "cuda":
         torch.cuda.empty_cache()
     return SimpleNamespace(
-        default=default_counts, device=device_counts, kbid=kbid, sid=sid, reqs=reqs, corpus=corpus,
+        default=default_counts, device=device_counts, kbid=kbid, sid=sid, reqs=reqs, corpus=corpus, rows=rows,
         default_out=default_out, device_out=device_out, default_resp=default_resp, device_resp=device_resp,
     )
 
@@ -3040,6 +3068,14 @@ class HttpServer:
         asyncio.run_coroutine_threadsafe(self.app.server.stop(), self.loop).result(60)
         self.loop.call_soon_threadsafe(self.loop.stop)
         self.thread.join(60)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def http_body(req) -> dict:
@@ -3116,7 +3152,6 @@ def phase_http(torch, tmp, find, cfg, device="cuda"):
     import importlib.util
     import os
     import signal
-    import socket
     import threading
 
     import httpx
@@ -3256,9 +3291,7 @@ def phase_http(torch, tmp, find, cfg, device="cuda"):
         torch.cuda.empty_cache()
 
     # ---- the normal entry point, as a subprocess -------------------------------
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     t = time.perf_counter()
     with open(f"{tmp}/cli.err", "w+") as log_err:
         # NDBTPU_TEXT_HOST_TIER=0 still set: the CLI serves boot B's route
@@ -3314,6 +3347,435 @@ def phase_http(torch, tmp, find, cfg, device="cuda"):
         flush=True,
     )
     return SimpleNamespace(default=counts["default"], device=counts["device"])
+
+
+# ---------------------------------------------------------------------------
+# component mode: the substrate, the writer and two searcher replicas, each a
+# process of its own, and the cluster's scatter-gather over them
+# ---------------------------------------------------------------------------
+
+CLUSTER_FULL = {
+    "requests": 64,  # hybrid shard requests through DistributedSearcher (the node phase's shape)
+    "threads": 8,  # client threads of the threaded pass and the failover burst
+    "kill_after": 16,  # answers of the failover burst before the primary replica is killed
+    "cpu": 0,  # answers held again to an in-process node on the CPU (the card tests use it)
+    "boot_deadline": 600.0,  # seconds a replica may take to open its port and to answer
+    "deadline": 120.0,  # seconds a write may take to be the top hit
+}
+
+# A component process as ``python -m nucliadb_tpu_torch.component.run`` runs
+# it, whose launch counters (the port's own, ``slot_scan.LAUNCHES`` and
+# ``binary_scan.LAUNCHES``), CUDA state and allocator reserve are written to
+# the file named by its first argument on SIGUSR1.
+CLUSTER_CHILD = """
+import json, os, signal, sys
+import torch
+from nucliadb_tpu_torch.ops import binary_scan, slot_scan
+counts = sys.argv.pop(1)
+def report(*_):
+    out = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, cuda_initialized=torch.cuda.is_initialized())
+    if out["cuda_initialized"]:  # what its caching allocator holds on the card (its context not included)
+        out["torch_reserved_mib"] = torch.cuda.memory_reserved() / 2**20
+    with open(counts + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(counts + ".tmp", counts)
+signal.signal(signal.SIGUSR1, report)
+sys.argv[0] = "run"
+from nucliadb_tpu_torch.component.run import main
+main()
+"""
+
+
+def cluster_child_command(args: list, counts: str) -> list:
+    """The component runner with ``args``, in a process that reports its
+    launch counts (see ``CLUSTER_CHILD``)."""
+    import sys
+
+    return [sys.executable, "-c", CLUSTER_CHILD, counts, *args]
+
+
+class ClusterChild:
+    """One component process: its command, log, counts file and port."""
+
+    def __init__(self, tmp, name, args, port):
+        import os
+
+        self.name, self.port = name, port
+        self.counts = f"{tmp}/{name}.counts.json"
+        self.log = open(f"{tmp}/{name}.log", "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cluster_child_command(args, self.counts), stdout=self.log,
+                                     stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.boot_s = None
+
+    def alive(self, what):
+        check(self.proc.poll() is None, f"{what}: {self.name} exited with {self.proc.returncode}:\\n{self.tail()}")
+
+    def tail(self, n=3000) -> str:
+        self.log.flush()
+        self.log.seek(0)
+        return self.log.read()[-n:]
+
+    def wait_port(self, deadline):
+        import socket
+
+        while True:
+            self.alive("boot")
+            try:
+                socket.create_connection(("127.0.0.1", self.port), timeout=1).close()
+                break
+            except OSError:
+                check(time.perf_counter() - self.t0 < deadline, f"{self.name}: port {self.port} never opened")
+                time.sleep(0.1)
+        self.boot_s = time.perf_counter() - self.t0
+
+    def launches(self) -> dict:
+        """The child's counters now (SIGUSR1, then its file)."""
+        import os
+        import signal
+
+        if os.path.exists(self.counts):
+            os.remove(self.counts)
+        self.alive("counts")
+        self.proc.send_signal(signal.SIGUSR1)
+        t = time.perf_counter()
+        while not os.path.exists(self.counts):
+            check(time.perf_counter() - t < 30, f"{self.name} did not report its counts")
+            time.sleep(0.02)
+        with open(self.counts) as f:
+            return json.load(f)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self.log.close()
+
+
+def nvidia_smi(query: str) -> list:
+    """The rows of ``nvidia-smi --query-<query> --format=csv,noheader,nounits``."""
+    out = subprocess.run(["nvidia-smi", f"--query-{query}", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return [[x.strip() for x in line.split(",")] for line in out.strip().splitlines()]
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in ("top1", "top2", "binary")}
+
+
+def proto_search(address, sid, req) -> dict:
+    """``req`` sent as a protobuf ``nidx.NidxSearcher/Search`` (the port's
+    own wire codec), its response decoded."""
+    import grpc
+
+    from nucliadb_tpu_torch.grpc_plane import protowire as pw
+
+    payload = {"shard_ids": [sid], "body": req.body, "result_per_page": req.top_k, "paragraph": req.paragraph,
+               "document": req.document, "vector": [float(x) for x in req.vector], "vectorset": "m"}
+    with grpc.insecure_channel(address) as channel:
+        fn = channel.unary_unary("/nidx.NidxSearcher/Search", request_serializer=lambda b: b,
+                                 response_deserializer=lambda b: b)
+        return pw.decode(pw.SEARCH_RESPONSE, fn(pw.encode(pw.SEARCH_REQUEST, payload), timeout=600))
+
+
+def proto_same(proto, resp, what):
+    """A protobuf SearchResponse against the msgpack answer of the same
+    request: the same hits in the same order, scores within 1e-6 (the
+    protobuf wire carries f32)."""
+    legs = (
+        ("paragraph", [(r["paragraph"], r["score"]["bm25"]) for r in proto.get("paragraph", {}).get("results", [])],
+         [(h.paragraph_id, h.score) for h in resp.paragraph.hits]),
+        ("document", [(f"{r['uuid']}/{r['field']}", r["score"]["bm25"])
+                      for r in proto.get("document", {}).get("results", [])],
+         [(h.key, h.score) for h in resp.document.hits]),
+        ("vector", [(r["doc_id"]["id"], r["score"]) for r in proto.get("vector", {}).get("documents", [])],
+         [(h.key, h.score) for h in resp.vector]),
+    )
+    for leg, got, want in legs:
+        check(bool(want) and [k for k, _ in got] == [k for k, _ in want], f"{what}: {leg} hits differ")
+        check(all(abs(a - b) <= 1e-6 * abs(b) + 1e-7 for (_, a), (_, b) in zip(got, want)), f"{what}: {leg} scores")
+
+
+def phase_cluster(torch, tmp, find, cfg, device="cuda"):
+    """Component mode over ``phase_find``'s knowledge box (see the module
+    docstring); prints one line per part and returns the replicas' launch
+    counts on the counted main path (the hybrid requests through
+    ``DistributedSearcher``)."""
+    import os
+    import signal
+    import threading
+
+    import grpc
+
+    from nucliadb_tpu_torch.cluster import DistributedSearcher, TopologyWatcher
+    from nucliadb_tpu_torch.grpc_plane import NodeClient, WriterClient
+    from nucliadb_tpu_torch.services import EmbeddedNode
+    from nucliadb_tpu_torch.shard import ShardSearchRequest
+
+    t_phase = time.perf_counter()
+    corpus, sid, kbid, rows = find.corpus, find.sid, find.kbid, find.rows
+    n_req = cfg["requests"]
+    reqs = [node_hybrid(corpus, i) for i in range(n_req)]
+    base = f"{tmp}/cluster"
+    # the substrate's files are the /find phase's: its metadata and blobs
+    # (the node's) and its maindb, linked where SubstrateServer opens them
+    os.makedirs(f"{base}/s/substrate")
+    for name, target in (("metadata.db", f"{tmp}/node/metadata.db"), ("blobs", f"{tmp}/node/blobs"),
+                         ("maindb.db", f"{tmp}/maindb.db")):
+        os.symlink(target, f"{base}/s/substrate/{name}")
+    ports = {name: free_port() for name in ("s", "w", "c1", "c2")}
+    topology = f"{base}/nodes.json"
+    with open(topology, "w") as f:
+        json.dump([{"name": c, "address": f"127.0.0.1:{ports[c]}"} for c in ("c1", "c2")], f)
+    sub = f"127.0.0.1:{ports['s']}"
+    children = {}
+    watcher = writer = None
+    try:
+        # S: substrate only, and the default --device (cuda): it never
+        # resolves it, so it holds no CUDA context
+        children["s"] = ClusterChild(base, "s", ["substrate", "--serve-substrate", sub, "--data-dir", f"{base}/s"],
+                                     ports["s"])
+        children["s"].wait_port(cfg["boot_deadline"])
+        children["w"] = ClusterChild(base, "w", [
+            "writer", "ingest", "scheduler", "worker", "--substrate", sub, "--device", device,
+            "--data-dir", f"{base}/w", "--writer-address", f"127.0.0.1:{ports['w']}"], ports["w"])
+        for c in ("c1", "c2"):
+            children[c] = ClusterChild(base, c, [
+                "searcher", "--substrate", sub, "--topology", topology, "--node-name", c, "--device", device,
+                "--data-dir", f"{base}/{c}", "--grpc-address", f"127.0.0.1:{ports[c]}"], ports[c])
+        # the in-process node over the same files opens while the replicas boot
+        t = time.perf_counter()
+        local = EmbeddedNode(f"{tmp}/node", device=device)
+        check(sid in local.wait_for_sync(), "the in-process node did not open the shard")
+        t_local = time.perf_counter() - t
+        for name in ("w", "c1", "c2"):
+            children[name].wait_port(cfg["boot_deadline"])
+        probe = ShardSearchRequest(body=corpus.bodies[0], vector=corpus.q_np[0], top_k=1, paragraph=True)
+        answer_s = {}
+        for c in ("c1", "c2"):  # each replica: sync over the substrate, open, first answer
+            client, err = NodeClient(f"127.0.0.1:{ports[c]}", timeout=cfg["boot_deadline"]), None
+            while True:
+                children[c].alive("sync")
+                try:
+                    resp = client.search(sid, probe)
+                    if resp.vector and resp.paragraph and resp.paragraph.hits:
+                        break
+                except grpc.RpcError as e:  # the shard is not synced yet: asked again until the deadline
+                    err = e
+                check(time.perf_counter() - children[c].t0 < cfg["boot_deadline"], f"{c} never answered: {err}")
+                time.sleep(0.5)
+            answer_s[c] = time.perf_counter() - children[c].t0
+            client.close()
+        print(
+            f"cluster boot: ports open after (s) {json.dumps({n: round(c.boot_s, 3) for n, c in children.items()})}, "
+            f"replicas answer after (s) {json.dumps({c: round(v, 3) for c, v in answer_s.items()})} (their sync over "
+            f"the substrate and open included); the in-process node opened in {t_local:.1f}s",
+            flush=True,
+        )
+        watcher = TopologyWatcher(topology, make_backend=lambda name, address: NodeClient(address, timeout=600))
+        cluster = DistributedSearcher(watcher.backends, watcher.selector)
+        primary, other = watcher.selector.nodes_for_shard(sid)
+        check({primary, other} == {"c1", "c2"}, "both replicas must own the shard")
+
+        def ask(req):
+            resp, errors = cluster.search([sid], req)
+            check(errors == [], f"ShardError: {errors}")
+            return resp
+
+        # ---- the main path, counted: the hybrid requests over the replicas ----
+        before = {c: children[c].launches() for c in ("c1", "c2")}
+        out, ms = [], []
+        for req in reqs:
+            t = time.perf_counter()
+            out.append(ask(req))
+            ms.append((time.perf_counter() - t) * 1e3)
+        after = {c: children[c].launches() for c in ("c1", "c2")}
+        # ------------------------------------------------------------------
+        counted = {c: delta(after[c], before[c]) for c in ("c1", "c2")}
+        if device == "cuda":  # on the CPU the wrappers take their plain versions, which count nothing
+            check(counted[primary]["top2"] >= n_req, f"the answering replica launched {counted[primary]}")
+            check(counted[other]["top2"] == 0, f"the idle replica launched {counted[other]}")
+        check(all(v["top1"] == v["binary"] == 0 for v in counted.values()), f"a kernel of another route: {counted}")
+        local_out, local_ms = [], []
+        for req in reqs:
+            t = time.perf_counter()
+            local_out.append(local.search(sid, req))
+            local_ms.append((time.perf_counter() - t) * 1e3)
+        for i, (a, b) in enumerate(zip(out, local_out)):
+            node_same(a, b, KW_RTOL, f"cluster request {i} vs the in-process node")
+            check(len(a.vector) == NODE_TOP_K and a.paragraph is not None and a.document is not None,
+                  f"cluster request {i}: a leg is missing")
+        check(all(sum(len(getattr(r, leg).hits) for r in out) for leg in ("paragraph", "document")),
+              "no keyword leg matched anything")
+        q_dev = torch.from_numpy(corpus.q_np[:n_req]).to(device)
+        vecs = torch.from_numpy(corpus.vecs_np).to(device)
+        oracle = exact_oracle(torch, vecs, torch.ones(len(vecs), dtype=torch.bool, device=device), q_dev, TOP_K)
+        del vecs, q_dev
+
+        def row(key):
+            parts = key.split("/")
+            return rows.get("/".join(parts[:-2] + parts[-1:]), -1)
+
+        recall = float(np.mean([len({row(h.key) for h in r.vector[:TOP_K]} & set(oracle[i].tolist())) / TOP_K
+                                for i, r in enumerate(out)]))
+        check(recall >= RECALL_BAR, f"cluster vector recall@10 {recall} < {RECALL_BAR}")
+        n_c = cfg["cpu"]
+        if n_c:  # the card's replica against the CPU, over the same segments
+            cpu = EmbeddedNode(f"{tmp}/node", device="cpu")
+            for i in range(n_c):
+                node_same(out[i], cpu.search(sid, reqs[i]), NODE_CPU_RTOL, f"cluster request {i} vs a CPU node")
+            del cpu
+
+        # ---- the protobuf wire: one request through NidxSearcher -------------
+        proto_same(proto_search(f"127.0.0.1:{ports[primary]}", sid, reqs[0]), out[0], "protobuf Search")
+
+        # ---- 8 client threads: each answer its solo answer --------------------
+        def burst(indices, kill=None):
+            """``reqs[i]`` for i in ``indices`` from the client threads;
+            (answers, [(start, end)] seconds); ``kill`` runs once
+            ``cfg['kill_after']`` answers are in."""
+            got, spans, errors, done = [None] * len(indices), [None] * len(indices), [], []
+            lock = threading.Lock()
+
+            def worker(w):
+                try:
+                    for j in range(w, len(indices), cfg["threads"]):
+                        t0 = time.perf_counter()
+                        got[j] = ask(reqs[indices[j]])
+                        spans[j] = (t0, time.perf_counter())
+                        with lock:
+                            done.append(j)
+                            if kill is not None and len(done) == cfg["kill_after"]:
+                                kill()
+                except BaseException as e:  # reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=worker, args=(w,)) for w in range(cfg["threads"])]
+            [th.start() for th in threads]
+            [th.join(timeout=600) for th in threads]
+            check(not errors and all(g is not None for g in got), f"a threaded request failed: {errors[:1]}")
+            return got, spans
+
+        t = time.perf_counter()
+        for req in reqs:  # the same requests one after another, warm
+            ask(req)
+        t_warm = (time.perf_counter() - t) * 1e3
+        before = {c: children[c].launches() for c in ("c1", "c2")}
+        t = time.perf_counter()
+        threaded, _ = burst(list(range(n_req)))
+        t_threads = (time.perf_counter() - t) * 1e3
+        for i, r in enumerate(threaded):
+            node_same(r, out[i], KW_RTOL, f"threaded cluster request {i} vs its solo answer")
+        threaded_launches = {c: delta(children[c].launches(), before[c]) for c in ("c1", "c2")}
+
+        # ---- memory and contexts on the card, every process alive ------------
+        contexts = {}
+        if device == "cuda":
+            # nvidia-smi lists pids of its own namespace, which may not be
+            # these processes' (then no child pid appears among them)
+            apps = {int(pid): (float(mib) if mib.replace(".", "", 1).isdigit() else None)
+                    for pid, mib in nvidia_smi("compute-apps=pid,used_memory")}
+            for name, child in children.items():
+                state = child.launches()
+                contexts[name] = {"cuda_initialized": state["cuda_initialized"],
+                                  "torch_reserved_mib": state.get("torch_reserved_mib"),
+                                  "listed": child.proc.pid in apps, "nvidia_smi_mib": apps.get(child.proc.pid)}
+            contexts["parent"] = {"torch_reserved_mib": torch.cuda.memory_reserved() / 2**20}
+            contexts["card"] = {"compute_apps_listed": len(apps),
+                                "memory_used_mib": float(nvidia_smi("gpu=memory.used")[0][0])}
+            check(not contexts["s"]["cuda_initialized"] and not contexts["s"]["listed"],
+                  f"the substrate process holds a CUDA context: {contexts['s']}")
+            check(all(contexts[c]["cuda_initialized"] for c in ("c1", "c2")), f"a replica never used the card: {contexts}")
+
+        # ---- failover: the primary replica killed mid-burst -------------------
+        before_other = children[other].launches()
+        killed = {}
+
+        def kill():
+            killed["t"] = time.perf_counter()
+            children[primary].proc.send_signal(signal.SIGKILL)
+
+        got, spans = burst(list(range(n_req)), kill=kill)
+        check("t" in killed, "the primary was never killed")
+        children[primary].proc.wait(timeout=60)
+        for i, r in enumerate(got):
+            node_same(r, out[i], KW_RTOL, f"failover request {i} vs its answer before the kill")
+        after_kill = [(s, e) for s, e in spans if e > killed["t"]]
+        failover_ms = max(e - s for s, e in after_kill) * 1e3
+        after_kill_p50_ms = float(np.percentile([e - s for s, e in after_kill], 50)) * 1e3
+        started_after = sum(1 for s, _ in spans if s > killed["t"])
+        took_over = delta(children[other].launches(), before_other)
+        check(started_after > 0, "no request started after the kill")
+        if device == "cuda":  # its coalescer may serve concurrent requests with one launch
+            check(took_over["top2"] > 0, f"{other} launched {took_over} for {started_after} requests")
+
+        # ---- a write through the writer plane, until it is the top hit --------
+        writer = WriterClient(f"127.0.0.1:{ports['w']}", timeout=600)
+        payload = http_new_payload(corpus, 0, SEED + 500)
+        vector = np.asarray(payload["embeddings"]["m"]["body"][3]["vector"], np.float32)
+        t = time.perf_counter()
+        rid = writer.process_message(kbid, "create", payload=payload)["rid"]
+        t_ack = time.perf_counter() - t
+        semantic = ShardSearchRequest(vector=vector, top_k=NODE_TOP_K, paragraph=False)
+        while True:
+            resp = ask(semantic)
+            if resp.vector and resp.vector[0].key.startswith(rid + "/"):
+                break
+            check(time.perf_counter() - t < cfg["deadline"], f"the write was not the top hit within {cfg['deadline']}s")
+            time.sleep(0.2)
+        t_visible = time.perf_counter() - t
+        for name, child in children.items():
+            if name != primary:
+                child.alive("the end of the phase")
+    finally:
+        if writer is not None:
+            writer.close()
+        if watcher is not None:
+            for client in watcher.backends.values():
+                client.close()
+        for child in children.values():
+            child.stop()
+    for name, child in children.items():
+        check("Traceback" not in open(f"{base}/{name}.log").read(), f"{name} logged a traceback")
+    del local
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    timings = {
+        "boot_s": {n: round(c.boot_s, 3) for n, c in children.items()},
+        "answers_after_s": {c: round(v, 3) for c, v in answer_s.items()},
+        "in_process_open_s": round(t_local, 3),
+        "client_p50_ms": float(np.percentile(ms, 50)), "client_p90_ms": float(np.percentile(ms, 90)),
+        "in_process_p50_ms": float(np.percentile(local_ms, 50)), "in_process_p90_ms": float(np.percentile(local_ms, 90)),
+        "grpc_layer_ms": float(np.median(np.array(ms) - np.array(local_ms))),
+        "first_request_ms": ms[0], "sequential_ms": t_warm, "threads_ms": t_threads,
+        "failover_ms": failover_ms, "after_kill_p50_ms": after_kill_p50_ms,
+        "write_ack_s": t_ack, "write_visible_s": t_visible,
+    }
+    print(
+        f"cluster requests: substrate process over the /find phase's files, writer/ingest/scheduler/worker and two "
+        f"searcher replicas (--device {device}, topology file, replication 2), each its own process; {n_req} hybrid "
+        f"requests through DistributedSearcher equal the in-process node's (ties, scores within {KW_RTOL}), vector "
+        f"recall@10 {recall:.4f}; launches {json.dumps(counted)} (primary {primary}); {n_c} equal to a CPU node "
+        f"within {NODE_CPU_RTOL}; the protobuf Search equals the msgpack answer; {n_req} requests from "
+        f"{cfg['threads']} threads equal their solo answers (launches {json.dumps(threaded_launches)}); {primary} "
+        f"killed after {cfg['kill_after']} answers of a burst: every request answered with the same answers, "
+        f"{started_after} started after the kill, {other} launched {json.dumps(took_over)}; a write the top hit",
+        flush=True,
+    )
+    print(
+        f"cluster timings (host clock; client ms per request through DistributedSearcher over gRPC against the "
+        f"in-process node's on the same requests; the {n_req} one after another, warm, and from {cfg['threads']} "
+        f"threads; the slowest request across the kill and the p50 of those ending after it): {json.dumps({k: (round(v, 3) if isinstance(v, float) else v) for k, v in timings.items()})}; "
+        f"contexts {json.dumps(contexts)}; phase {time.perf_counter() - t_phase:.1f}s",
+        flush=True,
+    )
+    return SimpleNamespace(launches=counted[primary], idle=counted[other], took_over=took_over,
+                           started_after=started_after, timings=timings, contexts=contexts)
 
 
 # ---------------------------------------------------------------------------
@@ -4113,7 +4575,9 @@ def main() -> None:
         multi = child_phase_wait(multi_proc, multi_log, "multi")
         seconds["node, ann and multi beside find"], t = time.perf_counter() - t, time.perf_counter()
         http = phase_http(torch, tmp, find, HTTP_FULL)  # over phase_find's knowledge box
-    seconds["http"] = time.perf_counter() - t
+        seconds["http"], t = time.perf_counter() - t, time.perf_counter()
+        cluster = phase_cluster(torch, tmp, find, CLUSTER_FULL)  # over the same files, in processes of its own
+    seconds["cluster"] = time.perf_counter() - t
     seconds["ann (in its child)"] = ann["phase_s"]
     seconds["multi (in its child)"] = multi["phase_s"]
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}", flush=True)
@@ -4154,6 +4618,9 @@ def main() -> None:
                # the mesh vector group's counted path (phase_mesh: 4 members,
                # a batch of 64 and one of 2048)
                "mesh_launches": mesh_launches if mode == "top2" else 0,
+               # the answering searcher replica's, on the cluster phase's
+               # counted path (its own process, read from its counters)
+               "cluster_launches": cluster.launches.get(mode, 0),
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                # no single PyTorch call computes a slot table
                "library_ms": None, "share": bound_ms / k_ms}

@@ -865,3 +865,62 @@ def test_cuda_mesh_over_every_visible_card(tmp_path, monkeypatch):
         want = np.argsort(-ref[r], kind="stable")[:10]
         assert set(i_[r].tolist()) == set(want.tolist())
         np.testing.assert_allclose(s_[r], ref[r][i_[r]], rtol=1e-4)
+
+
+def test_cuda_phase_cluster_rehearsal(tmp_path, monkeypatch):
+    """``chip_smoke``'s cluster phase at a small size with ``--device cuda``
+    component processes: every answer over gRPC equals the in-process
+    node's, and 4 equal a CPU node's within 1e-4; the answering replica
+    launches the top-2 kernel for every vector leg and the other none
+    until the primary is killed; the substrate process holds no CUDA
+    context, the replicas do."""
+    _need_card()
+    import chip_smoke
+    from torch_test_helpers import rehearse_phase_cluster
+
+    out = rehearse_phase_cluster(chip_smoke, tmp_path, monkeypatch, "cuda", cpu=4)
+    assert out.launches["top2"] >= 12 and out.idle["top2"] == 0
+    assert out.took_over["top2"] > 0 and out.started_after > 0
+    assert not out.contexts["s"]["cuda_initialized"] and not out.contexts["s"]["listed"]
+    assert out.contexts["c1"]["cuda_initialized"] and out.contexts["c2"]["cuda_initialized"]
+
+
+def test_cuda_kernel_builds_race_safely_on_a_fresh_build_dir(tmp_path):
+    """Two processes started together on a fresh build directory (a copy of
+    the package, whose ``build/`` sits beside it) both build and load the
+    kernels and launch the top-2 scan; they end with the same libraries
+    and no partial file."""
+    _need_card()
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    shutil.copytree(repo / "nucliadb_tpu_torch", tmp_path / "nucliadb_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = (
+        "import torch\n"
+        "from nucliadb_tpu_torch.ops import slot_scan\n"
+        "from nucliadb_tpu_torch.utils import kernels\n"
+        "libs = [str(kernels.load(n)._name) for n in ('int8_slot_scan', 'binary_slot_scan')]\n"
+        "q = torch.randint(-127, 128, (24, 128), dtype=torch.int8, device='cuda')\n"
+        "codes = torch.randint(-127, 128, (4096, 128), dtype=torch.int8, device='cuda')\n"
+        "scale = torch.ones(4096, device='cuda')\n"
+        "mask = torch.ones(4096, dtype=torch.bool, device='cuda')\n"
+        "got = slot_scan.int8_scan_slots_resident2(q, codes, scale, mask, slots=128)\n"
+        "want = slot_scan.int8_scan_slots_resident2_reference(q, codes, scale, mask, slots=128)\n"
+        "assert torch.equal(got[1], want[1]) and slot_scan.LAUNCHES['top2'] == 1\n"
+        "print(libs)\n"
+    )
+    procs = [
+        subprocess.Popen([sys.executable, "-c", code], cwd=tmp_path, env=dict(os.environ, PYTHONPATH=str(tmp_path)),
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for _ in range(2)
+    ]
+    outs = [p.communicate(timeout=900)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    libs = [out.strip().splitlines()[-1] for out in outs]
+    assert libs[0] == libs[1] and str(tmp_path / "build" / "kernels") in libs[0], libs
+    assert not list((tmp_path / "build" / "kernels").glob("*.tmp"))

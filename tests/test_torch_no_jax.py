@@ -1,8 +1,9 @@
 """The port never imports jax or the JAX package, and never moves a CUDA
 request to the CPU: its vector and keyword legs, its index node, its
-product layer's /find, its standalone server answering /find over HTTP and
+product layer's /find, its standalone server answering /find over HTTP,
 its mesh (the sharded indexes, the groups and ``search_multi``'s mesh
-branch).
+branch) and its component mode (the substrate, the gRPC planes and the
+cluster's scatter-gather, with each component in a process of its own).
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter.
@@ -254,6 +255,83 @@ _SERVER_SCRIPT = textwrap.dedent(
 )
 
 
+# component mode: a substrate process and a writer/ingest/searcher process
+# of the port (each reports the modules it loaded when it is terminated),
+# a write through the writer plane, a search scattered over the node plane
+_CLUSTER_SCRIPT = textwrap.dedent(
+    """
+    import socket, subprocess, sys, tempfile, time
+    from nucliadb_tpu_torch.cluster import DistributedSearcher, ShardSelector
+    from nucliadb_tpu_torch.grpc_plane import NodeClient, WriterClient
+    from nucliadb_tpu_torch.shard import ShardSearchRequest
+    import nucliadb_tpu_torch.component.control, nucliadb_tpu_torch.grpc_plane.proto_compat
+
+    CHILD = (
+        "import os, signal, sys\\n"
+        "def stop(*_):\\n"
+        "    loaded = sorted(m for m in sys.modules if m in ('jax', 'nucliadb_tpu')\\n"
+        "                    or m.startswith(('jax.', 'jaxlib', 'nucliadb_tpu.')))\\n"
+        "    print('loaded: %r' % loaded, flush=True)\\n"
+        "    os._exit(0)\\n"
+        "signal.signal(signal.SIGTERM, stop)\\n"
+        "sys.argv = ['run', *sys.argv[1:]]\\n"
+        "from nucliadb_tpu_torch.component.run import main\\n"
+        "main()\\n"
+    )
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def wait_port(port, proc):
+        for _ in range(300):
+            assert proc.poll() is None, proc.stdout.read()
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                return
+            except OSError:
+                time.sleep(0.2)
+        raise AssertionError(port)
+
+    def child(*args):
+        return subprocess.Popen([sys.executable, "-c", CHILD, *args], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    sub, writer, search = free_port(), free_port(), free_port()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [child("substrate", "--serve-substrate", f"127.0.0.1:{sub}", "--data-dir", d + "/s")]
+        try:
+            wait_port(sub, procs[0])
+            procs.append(child("writer", "ingest", "searcher", "--substrate", f"127.0.0.1:{sub}", "--device", "cpu",
+                               "--data-dir", d + "/w", "--writer-address", f"127.0.0.1:{writer}",
+                               "--grpc-address", f"127.0.0.1:{search}"))
+            wait_port(search, procs[1])
+            client = WriterClient(f"127.0.0.1:{writer}", timeout=120)
+            kbid = client.new_kb({"slug": "kb"})
+            rid = client.process_message(kbid, "create", payload={
+                "title": "t", "texts": {"body": {"body": "distributed quantum flux search"}}})["rid"]
+            node = NodeClient(f"127.0.0.1:{search}", timeout=120)
+            sid = node.list_shards(kbid)[0]["id"]
+            cluster = DistributedSearcher({"c": node}, ShardSelector(["c"], replication=1), strict=True)
+            for _ in range(240):
+                resp, errors = cluster.search([sid], ShardSearchRequest(body="quantum flux", top_k=3))
+                if resp.paragraph.hits:
+                    break
+                time.sleep(0.5)
+            assert resp.paragraph.hits[0].rid == rid and errors == [], resp
+        finally:
+            for proc in procs:
+                proc.terminate()
+            outs = [proc.communicate(timeout=60)[0] for proc in procs]
+    for out in outs:
+        assert "loaded: []" in out, out
+    _no_jax_loaded()
+    print("OK")
+    """
+)
+
+
 def _fresh_interpreter(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
@@ -278,6 +356,10 @@ def test_port_server_imports_no_jax():
 _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(?:import|from)\s+nucliadb_tpu(?:\.|\s|,|$)", re.M)
 
 
+def test_port_component_processes_import_no_jax():
+    _fresh_interpreter(_CLUSTER_SCRIPT)
+
+
 def test_port_sources_name_no_jax_package_import():
     sources = sorted((Path(REPO) / "nucliadb_tpu_torch").rglob("*.py"))
     sources.append(Path(REPO) / "chip_smoke.py")
@@ -296,6 +378,10 @@ def test_port_sources_name_no_jax_package_import():
         "nucliadb_tpu_torch/parallel/__init__.py", "nucliadb_tpu_torch/parallel/mesh.py",
         "nucliadb_tpu_torch/parallel/group.py", "nucliadb_tpu_torch/parallel/text_group.py",
         "nucliadb_tpu_torch/parallel/text_mesh.py", "nucliadb_tpu_torch/parallel/hybrid_mesh.py",
+        "nucliadb_tpu_torch/grpc_plane/codec.py", "nucliadb_tpu_torch/grpc_plane/proto_translate.py",
+        "nucliadb_tpu_torch/grpc_plane/proto_compat.py", "nucliadb_tpu_torch/grpc_plane/server.py",
+        "nucliadb_tpu_torch/cluster/distributed.py", "nucliadb_tpu_torch/cluster/topology.py",
+        "nucliadb_tpu_torch/substrate/__init__.py", "nucliadb_tpu_torch/component/run.py",
     } <= names
     offending = [
         f"{path.relative_to(REPO)}:{text[:m.start()].count(chr(10)) + 1}"

@@ -296,3 +296,38 @@ def rehearse_phase_http(chip_smoke, tmp_path, monkeypatch, device):
     find = chip_smoke.phase_find(torch, str(tmp_path), cfg, device=device)
     http_cfg = dict(chip_smoke.HTTP_FULL, clients=4, timed=4, writes=3, deadline=120.0, bg_interval=1.0)
     return chip_smoke.phase_http(torch, str(tmp_path), find, http_cfg, device=device)
+
+
+def rehearse_phase_cluster(chip_smoke, tmp_path, monkeypatch, device, **cfg):
+    """``chip_smoke.phase_find`` then ``phase_cluster`` at a small size on
+    ``device``, with the routing constants shrunk in this process and in
+    every component process; returns phase_cluster's result."""
+    import torch
+
+    import nucliadb_tpu_torch.index.text_engine.engine as engine
+    import nucliadb_tpu_torch.index.vector.device as vector_device
+
+    monkeypatch.setattr(vector_device, "EXACT_SCAN_THRESHOLD", 256)
+    monkeypatch.setattr(vector_device, "HOST_SCAN_ELEMS", 0)
+    monkeypatch.setattr(engine, "GROUP_MIN_DOCS", 1_000)
+    monkeypatch.delenv("NDBTPU_TEXT_HOST_TIER", raising=False)
+    prelude = (
+        "import nucliadb_tpu_torch.index.text_engine.engine as engine\n"
+        "import nucliadb_tpu_torch.index.vector.device as device\n" + _SHRUNK
+    )
+    if device == "cpu":  # the plain version on the CPU: each replica counts what the kernel would
+        prelude += (
+            "from nucliadb_tpu_torch.ops import slot_scan\n"
+            "_plain = slot_scan.int8_scan_slots_resident2\n"
+            "def _counted(*a, **k):\n"
+            "    slot_scan.LAUNCHES.add('top2')\n"
+            "    return _plain(*a, **k)\n"
+            "slot_scan.int8_scan_slots_resident2 = _counted\n"
+        )
+    monkeypatch.setattr(chip_smoke, "CLUSTER_CHILD", prelude + chip_smoke.CLUSTER_CHILD)
+    find_cfg = dict(chip_smoke.FIND_FULL, resources=40, paragraphs=50, dim=128, requests=12, filtered=2, secured=2,
+                    fusion=2, semantic=12, cpu=0, burst=4, timed=2)
+    find = chip_smoke.phase_find(torch, str(tmp_path), find_cfg, device=device)
+    cluster_cfg = dict(chip_smoke.CLUSTER_FULL, requests=12, threads=4, kill_after=4, boot_deadline=180.0,
+                       deadline=60.0, **cfg)
+    return chip_smoke.phase_cluster(torch, str(tmp_path), find, cluster_cfg, device=device)
