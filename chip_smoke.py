@@ -9,9 +9,11 @@ It drives the port's vector-search paths, the semantic leg of /find, its
 keyword leg, the index node, the product /find, the standalone HTTP
 server, the opt-in ANN strategies, the beyond-HBM paged tiers,
 multivector MaxSim, the mesh (the multi-shard groups and the
-mesh-sharded indexes) and component mode (the substrate, the gRPC planes
-and the cluster's scatter-gather over searcher processes) once at full
-size, in phases that each print one line:
+mesh-sharded indexes), component mode (the substrate, the gRPC planes
+and the cluster's scatter-gather over searcher processes) and the ops path
+(the tool and migrator CLIs, the SDK with spans exported over OTLP, a node
+over S3-protocol storage) once at full size, in phases that each print one
+line:
 
 1. device: the card's name and power limit;
 2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
@@ -246,10 +248,36 @@ size, in phases that each print one line:
    across the kill; a resource written through ``WriterClient`` until it
    is the top hit, under a deadline; client p50/p90 against the
    in-process node's, the gRPC layer's ms, each process's boot seconds.
+14. ops: (after the cluster phase, over the same files) the ops path.
+   ``python -m nucliadb_tpu_torch.tool --device cuda list-kbs`` and
+   ``shards <kbid>`` (the vector index with at least the 136,000
+   paragraphs, the shard writable) and ``python -m
+   nucliadb_tpu_torch.migrator --device cuda --dry-run`` (nothing pending:
+   the HTTP phase's boot ran the migrations) as subprocesses started
+   together, each timed; meanwhile ``tests/cloud_fakes.py``'s S3 fake
+   (SigV4 checked on every request), loaded by path, gets every object of
+   the node's blob store through ``make_storage(StorageSettings(
+   backend="s3", ...))`` from 8 threads. Then an OTLP/HTTP sink on
+   127.0.0.1 and ``NDBTPU_TELEMETRY__OTLP`` pointing at it, the server
+   booted as the HTTP phase boots it (default keyword route): 16 of the
+   /find phase's requests over raw ``httpx``, then, counted, the same 16
+   through the port's ``NucliaDBClient.find`` (16 top-2 launches), each
+   equal to the raw answer (ties, scores within 1e-5); the exporter shut
+   down and the sink's bodies decoded with the port's wire codec: 32
+   ``search.find`` spans, each with its ``kbid`` and a 32-hex trace id;
+   the 16 over raw ``httpx`` once more, untraced, so that two raw passes
+   bracket the SDK's, and the three client p50s. Last, the metadata
+   copied with sqlite's backup API and an ``EmbeddedNode(...,
+   storage=<S3>, device="cuda")`` with no local blob store synced over
+   signed GETs; counted, 16 of the node phase's hybrid
+   shard requests (16 top-2 launches), each equal to a node's over the
+   local files (ties, scores within 1e-5); the bytes and GETs served and
+   the seconds from construction to the first answer. The phase must stay
+   within 60 s.
 
 It then prints each phase's wall seconds, the kernels' JSON line (each
-kernel's launches on its path and on the node, /find, HTTP, paged, mesh
-and cluster phases' counted paths, times, bound from this run's shapes
+kernel's launches on its path and on the node, /find, HTTP, paged, mesh,
+cluster and ops phases' counted paths, times, bound from this run's shapes
 and its share of it)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
@@ -3779,6 +3807,331 @@ def phase_cluster(torch, tmp, find, cfg, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# the ops path: the tool and migrator CLIs, the SDK with spans exported over
+# OTLP, and a node whose segments come over the S3 protocol
+# ---------------------------------------------------------------------------
+
+OPS_FULL = {
+    "requests": 16,  # /find requests of each SDK pass and hybrid shard requests of the S3-backed node
+    "cli_timeout": 120.0,  # seconds each CLI may take
+    "budget_s": 60.0,  # the phase's own limit
+}
+
+
+class OtlpSink:
+    """An OTLP/HTTP collector on 127.0.0.1: keeps the body of every
+    ``POST /v1/traces``."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        bodies = self.bodies = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                if self.path == "/v1/traces" and self.headers.get("Content-Type") == "application/x-protobuf":
+                    bodies.append(body)
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.endpoint = f"http://127.0.0.1:{self.server.server_port}"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def spans(self) -> list:
+        """Every span of every body, decoded by the port's wire codec with
+        ``otlp.py``'s schema."""
+        from nucliadb_tpu_torch.grpc_plane.protowire import decode
+        from nucliadb_tpu_torch.telemetry.otlp import EXPORT_TRACE_SERVICE_REQUEST
+
+        return [s for body in self.bodies for rs in decode(EXPORT_TRACE_SERVICE_REQUEST, body)["resource_spans"]
+                for ss in rs.get("scope_spans", []) for s in ss.get("spans", [])]
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def load_cloud_fakes():
+    """``tests/cloud_fakes.py`` loaded by its path (it imports only the
+    standard library)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "cloud_fakes.py")
+    spec = importlib.util.spec_from_file_location("cloud_fakes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def counting_fake_s3(fakes, bucket, access_key, secret_key):
+    """``make_fake_s3`` (SigV4 checked on every request) whose handler also
+    counts the object GETs it serves, their bytes and its refusals."""
+    import threading
+
+    server, endpoint, blobs = fakes.make_fake_s3(bucket, access_key, secret_key)
+    served = {"gets": 0, "get_bytes": 0, "puts": 0, "refused": 0}
+    lock = threading.Lock()  # the fake serves each request on a thread of its own
+    base = server.RequestHandlerClass
+
+    class Counting(base):
+        def _send(self, status, body=b"", content_type="application/xml", headers=None):
+            with lock:
+                if status == 403:
+                    served["refused"] += 1
+                elif self.command == "GET" and content_type == "application/octet-stream":
+                    served["gets"] += 1
+                    served["get_bytes"] += len(body)
+                elif self.command == "PUT" and status == 200:
+                    served["puts"] += 1
+            return super()._send(status, body, content_type, headers)
+
+    server.RequestHandlerClass = Counting
+    return server, endpoint, blobs, served
+
+
+def phase_ops(torch, tmp, find, cfg, device="cuda"):
+    """The ops path over ``phase_find``'s knowledge box, after the HTTP and
+    cluster phases (see the module docstring); prints one line per part and
+    returns the top-2 launches of its counted passes (the SDK's and the
+    S3-backed node's)."""
+    import os
+    import sqlite3
+    import sys
+
+    from nucliadb_tpu_torch.metadata import MetadataStore
+    from nucliadb_tpu_torch.ops import binary_scan, slot_scan
+    from nucliadb_tpu_torch.sdk import NucliaDBClient
+    from nucliadb_tpu_torch.services import EmbeddedNode
+    from nucliadb_tpu_torch.settings import StorageSettings
+    from nucliadb_tpu_torch.storage import LocalStorage, make_storage
+    from nucliadb_tpu_torch.telemetry import tracing
+    from nucliadb_tpu_torch.telemetry.otlp import OTLPHttpExporter
+
+    t_phase = time.perf_counter()
+    corpus, sid, kbid, rows = find.corpus, find.sid, find.kbid, find.rows
+    n_req = cfg["requests"]
+    # the S3 fake, and every object of the node's blob store put into it
+    # through the port's S3 backend while the CLIs run in processes of their
+    # own (the parent only waits on them)
+    fakes = load_cloud_fakes()
+    server, endpoint, blobs, served = counting_fake_s3(fakes, "ndb", "AKID", "sekrit")
+    s3 = make_storage(StorageSettings(backend="s3", endpoint=endpoint, bucket="ndb", access_key="AKID",
+                                      secret_key="sekrit"))
+    local_blobs = LocalStorage(f"{tmp}/node/blobs")
+
+    def put(key):
+        data = local_blobs.get(key)
+        s3.put(key, data)
+        return len(data)
+
+    def upload():
+        t = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:  # some 2,000 objects: their round trips overlap
+            return sum(pool.map(put, local_blobs.list())), time.perf_counter() - t
+
+    uploader = ThreadPoolExecutor(1)
+    uploading = uploader.submit(upload)
+    s3_node = local = None
+    try:
+        # ---- 1. the CLIs on the card, as subprocesses (started together) ------
+        tool = [sys.executable, "-m", "nucliadb_tpu_torch.tool", "--data-dir", tmp, "--device", device]
+        commands = {"list-kbs": tool + ["list-kbs"], "shards": tool + ["shards", kbid],
+                    "migrator --dry-run": [sys.executable, "-m", "nucliadb_tpu_torch.migrator", "--data-dir", tmp,
+                                           "--device", device, "--dry-run"]}
+        procs = {}
+        for what, argv in commands.items():
+            procs[what] = (time.perf_counter(), subprocess.Popen(
+                argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        cli_out, cli_s = {}, {}
+        for what, (t0, proc) in procs.items():
+            out, err = proc.communicate(timeout=cfg["cli_timeout"])
+            cli_s[what] = time.perf_counter() - t0
+            check(proc.returncode == 0, f"{what} exited with {proc.returncode}:\n{err[-3000:]}")
+            check("Traceback" not in err, f"{what} logged a traceback:\n{err[-3000:]}")
+            cli_out[what] = out
+        check(any(line.startswith(f"{kbid}  slug=") for line in cli_out["list-kbs"].splitlines()),
+              f"list-kbs does not list {kbid}: {cli_out['list-kbs'][:500]}")
+        shard_lines = cli_out["shards"].splitlines()
+        check(f"shard {sid} (writable)" in shard_lines, f"shards: no writable {sid}: {cli_out['shards'][:500]}")
+        m = re.search(r"^  vector/m: (\d+) segments, (\d+) records, (\d+) bytes$", cli_out["shards"], re.M)
+        check(m is not None, f"shards: no line for the vector index: {cli_out['shards'][:500]}")
+        vector_records = int(m.group(2))
+        check(vector_records >= len(rows), f"shards: the vector index holds {vector_records} < {len(rows)} records")
+        check(cli_out["migrator --dry-run"].strip().endswith("pending: []"),
+              f"the migrator's dry run: {cli_out['migrator --dry-run'][:500]}")
+        print(
+            f"ops CLIs (--device {device}, as subprocesses started together): list-kbs lists {kbid}; shards reports "
+            f"{sid} (writable), vector/m {m.group(1)} segments, {vector_records} records, {m.group(3)} bytes; the "
+            f"migrator's dry run lists nothing pending; seconds {json.dumps({k: round(v, 3) for k, v in cli_s.items()})}",
+            flush=True,
+        )
+
+        put_bytes, t_put = uploading.result()  # before the SDK's timings
+        check(served["puts"] > 0 and served["refused"] == 0, f"the S3 puts: {served}")
+
+        # ---- 2. the SDK against the server, spans exported over OTLP -----------
+        reqs = find.reqs[:n_req]
+        bodies = [http_body(r) for r in reqs]
+        sink = OtlpSink()
+        saved_env = {k: os.environ.get(k) for k in ("NDBTPU_TELEMETRY__OTLP", "NO_PROXY", "no_proxy")}
+        saved_tracer = tracing._tracer
+        os.environ["NDBTPU_TELEMETRY__OTLP"] = sink.endpoint
+        # the sink is local: no proxy of the environment may stand between
+        os.environ["NO_PROXY"] = os.environ["no_proxy"] = "127.0.0.1,localhost"
+        os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
+        srv = None
+        try:
+            if tracing._OTEL:
+                # the OpenTelemetry SDK would take the export: the port's
+                # exporter goes on the built-in tracer instead, so it is the
+                # one exercised
+                tracing._tracer = tracing._MiniTracer("nucliadb_tpu", exporter=OTLPHttpExporter(sink.endpoint))
+                tracer_kind = "built-in tracer, the port's OTLPHttpExporter attached by the phase (the OTel SDK imports)"
+            else:
+                tracing.setup_tracing()
+                tracer_kind = "setup_tracing: the built-in tracer with the port's OTLPHttpExporter (no OTel SDK)"
+            check(isinstance(tracing._tracer, tracing._MiniTracer)
+                  and isinstance(tracing._tracer.exporter, OTLPHttpExporter), f"no OTLP exporter: {tracing._tracer!r}")
+            exporter = tracing._tracer.exporter
+            srv = HttpServer(tmp, device, HTTP_FULL["bg_interval"])
+            srv.app._sync(force=True)
+            seen = find_capture(srv.app.node)
+            raw = [srv.find(kbid, b) for b in bodies]
+            raw_resp = [s[0] for s in seen[-n_req:]]
+            sdk = NucliaDBClient(srv.base, timeout=600)
+            try:
+                # ---- the main path, counted: the SDK's /find --------------------
+                reset_launches(slot_scan, binary_scan)
+                sdk_out, sdk_ms = [], []
+                for req in reqs:
+                    t = time.perf_counter()
+                    sdk_out.append(sdk.find(kbid, req))
+                    sdk_ms.append((time.perf_counter() - t) * 1e3)
+                sdk_launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+                # ------------------------------------------------------------------
+            finally:
+                sdk.close()
+            tracing.teardown_tracing()  # flushes the exporter
+            exporter._thread.join(30)
+            check(not exporter._thread.is_alive(), "the OTLP exporter's flusher did not stop")
+            # raw httpx again (untraced), as warm as the SDK's pass was: the
+            # two raw passes bracket it, so the order does not decide the p50s
+            raw_after = [srv.find(kbid, b) for b in bodies]
+            check(type(sdk_out[0]).__module__ == "nucliadb_tpu_torch.models.api", "the SDK parsed into another package")
+            for i, (res, (want, _, _), (again, _, _)) in enumerate(zip(sdk_out, raw, raw_after)):
+                find_results_ok(res, f"SDK find {i}")
+                find_same(res, want, find_tied(raw_resp[i]), KW_RTOL, f"SDK find {i} vs raw httpx")
+                find_same(again, want, find_tied(raw_resp[i]), KW_RTOL, f"raw httpx find {i}, second pass")
+            if device == "cuda":  # on the CPU the wrappers take their plain versions, which count nothing
+                check(sdk_launches.get("top2", 0) == n_req, f"the SDK pass launched {sdk_launches}")
+            check(sdk_launches.get("top1", 0) == sdk_launches.get("binary", 0) == 0,
+                  f"the SDK pass launched a kernel of another route: {sdk_launches}")
+            srv.stop()
+            srv = None
+        finally:
+            if srv is not None:
+                srv.stop()
+            tracing._tracer = saved_tracer
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            sink.stop()
+        spans = sink.spans()
+        finds = [s for s in spans if s.get("name") == "search.find"]
+        check(len(finds) == 2 * n_req, f"the sink decoded {len(finds)} search.find spans of {2 * n_req}")
+        for s in finds:
+            attrs = {a["key"]: a["value"].get("string_value") for a in s.get("attributes", [])}
+            check(attrs.get("kbid") == kbid, f"a search.find span without its kbid: {attrs}")
+            check(len(s["trace_id"]) == 16 and re.fullmatch("[0-9a-f]{32}", s["trace_id"].hex()) is not None,
+                  f"a search.find span's trace id: {s['trace_id']!r}")
+        raw_p50 = float(np.percentile([ms for _, _, ms in raw], 50))
+        raw_after_p50 = float(np.percentile([ms for _, _, ms in raw_after], 50))
+        sdk_p50 = float(np.percentile(sdk_ms, 50))
+        print(
+            f"ops SDK: {n_req} NucliaDBClient.find answers equal raw httpx's on the same server (ties, scores within "
+            f"{KW_RTOL}); launches {json.dumps(sdk_launches)}; client p50 raw httpx {raw_p50:.3f} ms, then SDK "
+            f"{sdk_p50:.3f} ms, then raw httpx again {raw_after_p50:.3f} ms; OTLP: {tracer_kind}; the sink got {len(sink.bodies)} POST /v1/traces, "
+            f"{len(spans)} spans, {len(finds)} search.find spans with their kbid and a 32-hex trace id",
+            flush=True,
+        )
+
+        # ---- 3. a node whose segments come over the S3 protocol ---------------
+        remote = f"{tmp}/ops_s3_node"
+        os.makedirs(remote)
+        src = sqlite3.connect(f"{tmp}/node/metadata.db")
+        dst = sqlite3.connect(f"{remote}/metadata.db")
+        src.backup(dst)  # the file is in WAL mode: a copy of the file alone may miss commits
+        src.close()
+        dst.close()
+        t = time.perf_counter()
+        s3_node = EmbeddedNode(remote, metadata=MetadataStore(f"{remote}/metadata.db"), storage=s3, device=device)
+        synced = s3_node.wait_for_sync()
+        t_sync = time.perf_counter() - t
+        check(sid in synced, "the S3-backed node did not open the shard")
+        check(not os.path.exists(f"{remote}/blobs"), "the S3-backed node wrote a local blob store")
+        reqs_node = [node_hybrid(corpus, i) for i in range(n_req)]
+        # ---- the main path, counted: the S3-backed node's hybrid requests ------
+        reset_launches(slot_scan, binary_scan)
+        s3_out, s3_ms = [], []
+        for req in reqs_node:
+            t = time.perf_counter()
+            s3_out.append(s3_node.search(sid, req))
+            s3_ms.append((time.perf_counter() - t) * 1e3)
+        s3_launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+        # ----------------------------------------------------------------------
+        t_first = t_sync + s3_ms[0] / 1e3
+        segments = [seg for index in s3_node.metadata.get_indexes(sid)
+                    for seg in s3_node.metadata.ready_segments(index.id)]
+        check(served["gets"] >= len(segments) and served["refused"] == 0,
+              f"the fake served {served} for {len(segments)} segments of the shard")
+        local = EmbeddedNode(f"{tmp}/node", device=device)
+        check(sid in local.wait_for_sync(), "the in-process node over the local files did not open the shard")
+        for i, req in enumerate(reqs_node):
+            node_same(s3_out[i], local.search(sid, req), KW_RTOL, f"S3-backed node request {i} vs the local node")
+            check(len(s3_out[i].vector) == NODE_TOP_K and s3_out[i].paragraph is not None,
+                  f"S3-backed node request {i}: a leg is missing")
+        if device == "cuda":
+            check(s3_launches.get("top2", 0) == n_req, f"the S3-backed node launched {s3_launches}")
+        check(s3_launches.get("top1", 0) == s3_launches.get("binary", 0) == 0,
+              f"the S3-backed node launched a kernel of another route: {s3_launches}")
+    finally:
+        del s3_node, local
+        uploader.shutdown(wait=True)
+        server.shutdown()
+        server.server_close()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(
+        f"ops S3: {len(blobs)} objects, {put_bytes} bytes put through the port's S3Storage (SigV4 checked by the "
+        f"fake) from 8 threads in {t_put:.3f}s; an EmbeddedNode over a copy of the metadata and the S3 storage (no local blob "
+        f"store) synced in {t_sync:.3f}s, {served['gets']} signed GETs of {served['get_bytes']} bytes for "
+        f"{len(segments)} segments, 0 refused; construction to first answer {t_first:.3f}s; {n_req} hybrid "
+        f"requests equal the local node's (ties, scores within {KW_RTOL}), launches {json.dumps(s3_launches)}, "
+        f"p50 {float(np.percentile(s3_ms, 50)):.3f} ms; phase {phase_s:.1f}s",
+        flush=True,
+    )
+    check(phase_s <= cfg["budget_s"], f"phase_ops took {phase_s:.1f}s > {cfg['budget_s']}s")
+    return SimpleNamespace(sdk=sdk_launches, s3=s3_launches,
+                           launches={k: sdk_launches.get(k, 0) + s3_launches.get(k, 0) for k in ("top1", "top2", "binary")},
+                           timings={"cli_s": cli_s, "sdk_p50_ms": sdk_p50, "raw_p50_ms": raw_p50,
+                                    "raw_after_p50_ms": raw_after_p50, "s3_put_s": t_put,
+                                    "s3_sync_s": t_sync, "first_answer_s": t_first, "phase_s": phase_s},
+                           served=served, spans=len(finds))
+
+
+# ---------------------------------------------------------------------------
 # the opt-in ANN strategies: the HNSW graph and IVF, through the vector index
 # and the node
 # ---------------------------------------------------------------------------
@@ -4577,7 +4930,9 @@ def main() -> None:
         http = phase_http(torch, tmp, find, HTTP_FULL)  # over phase_find's knowledge box
         seconds["http"], t = time.perf_counter() - t, time.perf_counter()
         cluster = phase_cluster(torch, tmp, find, CLUSTER_FULL)  # over the same files, in processes of its own
-    seconds["cluster"] = time.perf_counter() - t
+        seconds["cluster"], t = time.perf_counter() - t, time.perf_counter()
+        ops = phase_ops(torch, tmp, find, OPS_FULL)  # the CLIs, the SDK with OTLP, the S3-backed node
+    seconds["ops"] = time.perf_counter() - t
     seconds["ann (in its child)"] = ann["phase_s"]
     seconds["multi (in its child)"] = multi["phase_s"]
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}", flush=True)
@@ -4621,6 +4976,9 @@ def main() -> None:
                # the answering searcher replica's, on the cluster phase's
                # counted path (its own process, read from its counters)
                "cluster_launches": cluster.launches.get(mode, 0),
+               # the ops phase's counted paths: the SDK's /find and the
+               # S3-backed node's hybrid requests
+               "ops_launches": ops.launches.get(mode, 0),
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                # no single PyTorch call computes a slot table
                "library_ms": None, "share": bound_ms / k_ms}

@@ -1,9 +1,8 @@
 """Tracing: spans over the ingest and search paths with cross-process
 context propagation.
 
-The port's copy of ``nucliadb_tpu/telemetry/tracing.py``, verbatim but for
-the built-in tracer's OTLP/HTTP exporter (``telemetry/otlp.py`` there,
-which needs the proto plane): it is not ported, and asking for it raises.
+The port's copy of ``nucliadb_tpu/telemetry/tracing.py``,
+kept verbatim: the port imports nothing of the JAX package.
 
 Parity: nucliadb_telemetry's OTel wrappers and nidx's #[instrument] spans +
 NATS/gRPC context propagation (nidx/src/telemetry.rs:30-140,
@@ -89,7 +88,7 @@ _current: contextvars.ContextVar[Optional[_SpanContext]] = contextvars.ContextVa
 
 class _MiniTracer:
     """W3C-traceparent tracer: records spans to a bounded ring buffer and,
-    when an exporter is attached, ships them OTLP/HTTP (not ported)."""
+    when an exporter is attached, ships them OTLP/HTTP (telemetry/otlp.py)."""
 
     def __init__(
         self, service_name: str, console: bool = False, keep: int = 2048,
@@ -145,10 +144,9 @@ def setup_tracing(service_name: str = "nucliadb_tpu") -> None:
         exporter = None
         endpoint = os.environ.get("NDBTPU_TELEMETRY__OTLP")
         if endpoint:
-            raise NotImplementedError(
-                "the built-in tracer's OTLP/HTTP exporter is not ported yet "
-                "(ROADMAP.md, Queue 1 item 10b); install the OpenTelemetry SDK"
-            )
+            from .otlp import OTLPHttpExporter
+
+            exporter = OTLPHttpExporter(endpoint, service_name)
         _tracer = _MiniTracer(service_name, console=console, exporter=exporter)
         return
     provider = TracerProvider(resource=Resource.create({"service.name": service_name}))

@@ -885,6 +885,22 @@ def test_cuda_phase_cluster_rehearsal(tmp_path, monkeypatch):
     assert out.contexts["c1"]["cuda_initialized"] and out.contexts["c2"]["cuda_initialized"]
 
 
+
+def test_cuda_phase_ops_rehearsal(tmp_path, monkeypatch, capsys):
+    """``chip_smoke``'s ops phase at a small size on the card: the tool and
+    the migrator answer with ``--device cuda``, the SDK's answers equal raw
+    HTTP's with one top-2 launch each, every ``search.find`` span reaches
+    the OTLP sink, and a node over the S3 fake answers as the local node
+    with one top-2 launch a request."""
+    _need_card()
+    import chip_smoke
+    from torch_test_helpers import rehearse_phase_ops
+
+    out = rehearse_phase_ops(chip_smoke, tmp_path, monkeypatch, "cuda")
+    assert out.sdk["top2"] == 8 and out.s3["top2"] == 8 and out.spans == 16
+    assert out.served["gets"] > 0 and out.served["refused"] == 0
+    assert "ops CLIs (--device cuda" in capsys.readouterr().out
+
 def test_cuda_kernel_builds_race_safely_on_a_fresh_build_dir(tmp_path):
     """Two processes started together on a fresh build directory (a copy of
     the package, whose ``build/`` sits beside it) both build and load the

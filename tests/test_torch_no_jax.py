@@ -2,8 +2,10 @@
 request to the CPU: its vector and keyword legs, its index node, its
 product layer's /find, its standalone server answering /find over HTTP,
 its mesh (the sharded indexes, the groups and ``search_multi``'s mesh
-branch) and its component mode (the substrate, the gRPC planes and the
-cluster's scatter-gather, with each component in a process of its own).
+branch), its component mode (the substrate, the gRPC planes and the
+cluster's scatter-gather, with each component in a process of its own) and
+its ops path (the SDK, the OTLP exporter, the cloud storage backends, the
+task framework, the ops tool and the migrator CLI).
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter.
@@ -246,9 +248,17 @@ _SERVER_SCRIPT = textwrap.dedent(
             }).json()["uuid"]
             app._sync(force=True)
             found = client.post(f"/api/v1/kb/{kbid}/find", json={"query": "quick fox", "vector": v.tolist()})
+        # the port's SDK against the same server parses the same answer
+        from nucliadb_tpu_torch.models.api import FindRequest
+        from nucliadb_tpu_torch.sdk import NucliaDBClient
+
+        sdk = NucliaDBClient(f"http://127.0.0.1:{app.server.port}")
+        sdk_found = sdk.find(kbid, FindRequest(query="quick fox", vector=v.tolist()))
+        sdk.close()
         loop.call_soon_threadsafe(loop.stop)
         app.stop_background()
     assert found.status_code == 200 and rid in found.json()["resources"], found.text
+    assert list(sdk_found.resources) == list(found.json()["resources"]), sdk_found
     _no_jax_loaded()
     print("OK")
     """
@@ -332,11 +342,61 @@ _CLUSTER_SCRIPT = textwrap.dedent(
 )
 
 
+# the ops path's host modules: OTLP export, the cloud storage backends
+# against the stdlib protocol fakes, tasks over the bus, the ops tool and
+# the migrator CLI on the CPU
+_OPS_SCRIPT = textwrap.dedent(
+    """
+    import contextlib, importlib.util, io, sys, tempfile
+    from nucliadb_tpu_torch.settings import StorageSettings
+    from nucliadb_tpu_torch.storage import make_storage
+    from nucliadb_tpu_torch.telemetry import otlp
+    from nucliadb_tpu_torch.telemetry.tracing import SpanRecord
+    from nucliadb_tpu_torch.bus import EmbeddedBus
+    from nucliadb_tpu_torch.tasks import create_consumer, create_producer
+    from nucliadb_tpu_torch import tool
+    import nucliadb_tpu_torch.migrator.__main__ as migrator_cli
+    import nucliadb_tpu_torch.storage.s3, nucliadb_tpu_torch.storage.gcs, nucliadb_tpu_torch.storage.azure
+
+    body = otlp.encode_export_request("svc", [SpanRecord(
+        name="find", trace_id="ab" * 16, span_id="cd" * 8, parent_id="", start=1.0, end=2.0, attributes={"k": 1})])
+    assert b"find" in body
+
+    spec = importlib.util.spec_from_file_location("cloud_fakes", REPO + "/tests/cloud_fakes.py")
+    fakes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fakes)
+    server, endpoint, blobs = fakes.make_fake_s3("ndb", "AKID", "sekrit")
+    try:
+        s3 = make_storage(StorageSettings(backend="s3", endpoint=endpoint, bucket="ndb",
+                                          access_key="AKID", secret_key="sekrit"))
+        s3.put("seg/1", b"payload")
+        assert s3.get("seg/1") == b"payload" and list(s3.list()) == ["seg/1"]
+    finally:
+        server.shutdown()
+
+    bus = EmbeddedBus()
+    done = []
+    create_producer(bus, "t").send("kb1", rid="r1")
+    assert create_consumer(bus, "t", lambda m: done.append(m.kbid)).drain() == 1 and done == ["kb1"]
+
+    with tempfile.TemporaryDirectory() as d:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert tool.main(["--data-dir", d, "--device", "cpu", "list-kbs"]) == 0
+            sys.argv = ["migrator", "--data-dir", d, "--device", "cpu", "--dry-run"]
+            migrator_cli.main()
+        assert "pending: [" in out.getvalue(), out.getvalue()
+    _no_jax_loaded()
+    print("OK")
+    """
+)
+
+
 def _fresh_interpreter(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX + script], cwd=REPO, env=env,
+        [sys.executable, "-c", f"REPO = {REPO!r}\n" + _NO_JAX + script], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
@@ -349,6 +409,10 @@ def test_port_imports_no_jax():
 
 def test_port_server_imports_no_jax():
     _fresh_interpreter(_SERVER_SCRIPT)
+
+
+def test_port_ops_modules_import_no_jax():
+    _fresh_interpreter(_OPS_SCRIPT)
 
 
 # "import nucliadb_tpu", "from nucliadb_tpu.x import", "import nucliadb_tpu.x as y",
@@ -382,6 +446,11 @@ def test_port_sources_name_no_jax_package_import():
         "nucliadb_tpu_torch/grpc_plane/proto_compat.py", "nucliadb_tpu_torch/grpc_plane/server.py",
         "nucliadb_tpu_torch/cluster/distributed.py", "nucliadb_tpu_torch/cluster/topology.py",
         "nucliadb_tpu_torch/substrate/__init__.py", "nucliadb_tpu_torch/component/run.py",
+        "nucliadb_tpu_torch/telemetry/otlp.py", "nucliadb_tpu_torch/storage/s3.py",
+        "nucliadb_tpu_torch/storage/gcs.py", "nucliadb_tpu_torch/storage/azure.py",
+        "nucliadb_tpu_torch/tasks/__init__.py", "nucliadb_tpu_torch/tool.py",
+        "nucliadb_tpu_torch/migrator/__main__.py", "nucliadb_tpu_torch/sdk/__init__.py",
+        "nucliadb_tpu_torch/sdk/client.py",
     } <= names
     offending = [
         f"{path.relative_to(REPO)}:{text[:m.start()].count(chr(10)) + 1}"

@@ -523,19 +523,24 @@ def test_prometheus_service_metrics(tmp_path):
 
 
 def test_node_refuses_what_is_not_ported(tmp_path):
-    """Storage backends needing httpx fail loudly when asked for, and a CUDA
-    node without a card raises; a CPU node indexes, syncs and searches
+    """Nothing is refused any more: the s3, gcs and azure backends build the
+    port's own clients and an unknown backend raises, and a CUDA node
+    without a card raises; a CPU node indexes, syncs and searches
     vectorsets flagged hnsw and ivf, and a MULTI vectorset (one elem per
     paragraph, searched by MaxSim)."""
     import torch
-    from types import SimpleNamespace
 
     from nucliadb_tpu_torch.index.vector.config import VectorCardinality
+    from nucliadb_tpu_torch.settings import StorageSettings
     from nucliadb_tpu_torch.storage import make_storage
+    from nucliadb_tpu_torch.storage.azure import AzureStorage
+    from nucliadb_tpu_torch.storage.gcs import GCSStorage
+    from nucliadb_tpu_torch.storage.s3 import S3Storage
 
-    for backend in ("s3", "gcs", "azure"):
-        with pytest.raises(NotImplementedError, match="httpx"):
-            make_storage(SimpleNamespace(backend=backend))
+    for backend, cls in (("s3", S3Storage), ("gcs", GCSStorage), ("azure", AzureStorage)):
+        assert type(make_storage(StorageSettings(backend=backend, account="acct", container="c"))) is cls
+    with pytest.raises(ValueError, match="unknown storage backend"):
+        make_storage(StorageSettings(backend="ftp"))
     node = port_services.EmbeddedNode(data_dir=str(tmp_path / "n"), storage=PortMemoryStorage(), device="cpu")
     multi = as_port(VectorConfig(dimension=DIM))
     multi.cardinality = VectorCardinality.MULTI

@@ -331,3 +331,39 @@ def rehearse_phase_cluster(chip_smoke, tmp_path, monkeypatch, device, **cfg):
     cluster_cfg = dict(chip_smoke.CLUSTER_FULL, requests=12, threads=4, kill_after=4, boot_deadline=180.0,
                        deadline=60.0, **cfg)
     return chip_smoke.phase_cluster(torch, str(tmp_path), find, cluster_cfg, device=device)
+
+
+def rehearse_phase_ops(chip_smoke, tmp_path, monkeypatch, device, **cfg):
+    """``chip_smoke.phase_find`` then ``phase_ops`` at a small size on
+    ``device``, with the routing constants shrunk in this process and the
+    boot migrations applied as the HTTP phase's boot applies them; on the
+    CPU the top-2 scan's plain calls count as its launches. Returns
+    phase_ops's result."""
+    import sys
+
+    import torch
+
+    import nucliadb_tpu_torch.index.text_engine.engine as engine
+    import nucliadb_tpu_torch.index.vector.device as vector_device
+    import nucliadb_tpu_torch.migrator.__main__ as migrator_cli
+    from nucliadb_tpu_torch.ops import slot_scan
+
+    monkeypatch.setattr(vector_device, "EXACT_SCAN_THRESHOLD", 256)
+    monkeypatch.setattr(vector_device, "HOST_SCAN_ELEMS", 0)
+    monkeypatch.setattr(engine, "GROUP_MIN_DOCS", 1_000)
+    monkeypatch.delenv("NDBTPU_TEXT_HOST_TIER", raising=False)
+    if device == "cpu":  # the plain version on the CPU: count what the kernel would
+        plain = slot_scan.int8_scan_slots_resident2
+
+        def counted(*a, **k):
+            slot_scan.LAUNCHES.add("top2")
+            return plain(*a, **k)
+
+        monkeypatch.setattr(slot_scan, "int8_scan_slots_resident2", counted)
+    find_cfg = dict(chip_smoke.FIND_FULL, resources=40, paragraphs=50, dim=128, requests=8, filtered=2, secured=2,
+                    fusion=2, semantic=8, cpu=0, burst=4, timed=2)
+    find = chip_smoke.phase_find(torch, str(tmp_path), find_cfg, device=device)
+    monkeypatch.setattr(sys, "argv", ["migrator", "--data-dir", str(tmp_path), "--device", device])
+    migrator_cli.main()
+    ops_cfg = dict(chip_smoke.OPS_FULL, requests=8, **cfg)
+    return chip_smoke.phase_ops(torch, str(tmp_path), find, ops_cfg, device=device)
