@@ -16,9 +16,10 @@ over S3-protocol storage) once at full size, in phases that each print one
 line:
 
 1. device: the card's name and power limit;
-2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``,
-   one nvcc per source, all started together, and prints the int8 kernel's
-   ``-Xptxas -v`` report (registers and spills of each instantiation);
+2. build: compiles every kernel of the paths from ``nucliadb_tpu_torch/csrc``
+   (the int8 and binary slot scans and the BM25 program), one nvcc per
+   source, all started together, and prints the int8 kernel's ``-Xptxas
+   -v`` report (registers and spills of each instantiation);
 3. kernels vs plain versions, bit for bit (scores as int32 bits, and ids),
    on the card:
    - the top-2 int8 slot scan (``wgmma`` on the int8 tensor cores) over B
@@ -87,6 +88,18 @@ line:
      ``nucliadb_tpu_native`` loads: no dispatch, the device's answers up to
      ties), and a batch of high-df AND pairs the cost model sends to the
      device;
+   - on the device route every dispatch launches the BM25 program's hand
+     kernel, ``csrc/bm25_program.cu``, once (``ops.bm25.LAUNCHES``); the
+     launches a device-route request and the BM25 program's share of them
+     (``torch.profiler``), the 64 threaded requests against the same one
+     after another;
+   - the kernel against its plain version at the OR 512, AND 512 and single
+     request shapes, bit for bit (whole final rows, count rows, bitmaps or
+     counts, and the cuts: the kernel's block cuts merged against
+     ``ops/topk.py``'s cut of the whole rows), its time with and without
+     its block cut, the plain program's, the whole program on the card,
+     one ``index_add_`` of the batch's lanes as a yardstick (the scatter
+     alone) and its bound from this run's lanes;
    - a breakdown of the device program by stage (CUDA events) with the
      scatter's deterministic and atomic forms, host planning and hits, and
      whole batches on both routes;
@@ -275,10 +288,19 @@ line:
    the seconds from construction to the first answer. The phase must stay
    within 60 s.
 
+The node, /find and HTTP phases' counted paths and the mesh phase check
+that every BM25 dispatch on the card launched ``bm25_program.cu`` once; the
+node phase also prints the launches a hybrid request on each route and
+the threaded bursts against the same requests one after another. The
+/find phase also holds the kernel bit for bit against its plain version
+at its device-route engine's shape, and the mesh phase the single-arena
+program (``MeshShardedTextEngine``'s) on member 0's own arena at its
+shard's shape: final rows, count rows, bitmaps and cuts.
+
 It then prints each phase's wall seconds, the kernels' JSON line (each
 kernel's launches on its path and on the node, /find, HTTP, paged, mesh,
 cluster and ops phases' counted paths, times, bound from this run's shapes
-and its share of it)
+and its share of it; the BM25 program's at the OR batch of 512)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
@@ -336,7 +358,7 @@ EDGE_SHAPES = {
 BINARY_SHAPES = [(b, n, d, 1024) for d in (128, 768) for n in (16384, 1048576) for b in (8, 64)]
 BINARY_TIMED = (64, 1048576, 768, 1024)
 BINARY_BATCH = 64  # the largest bucketed batch the binary kernel's gate takes
-SOURCES = ("int8_slot_scan", "binary_slot_scan")
+SOURCES = ("int8_slot_scan", "binary_slot_scan", "bm25_program")
 # NVIDIA H100 SXM data sheet, dense: int8 tensor cores and HBM3
 INT8_TOPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
@@ -1069,8 +1091,10 @@ def phase_paged(torch, slot_scan, binary_scan, corpus, device="cuda"):
     """The slices' 1M x 768 corpus reopened under ``PAGED_BUDGETS``: 1 GiB
     holds the int8 codes (809.5 MB at p_pad 1,048,576), not the f32 arena
     (3.22 GB), so ``host_rerank``; 256 MiB holds neither, so ``stream`` in
-    chunks of 65,536 rows. Returns the top-2 launches of the counted run."""
+    chunks of 65,536 rows. Returns the top-2 and the BM25 kernel's launches
+    of the counted run."""
     from nucliadb_tpu_torch.index.vector import LabelAtom, VectorSearchRequest
+    from nucliadb_tpu_torch.ops import bm25
 
     q_np = corpus.q_np
     out = {}
@@ -1084,12 +1108,13 @@ def phase_paged(torch, slot_scan, binary_scan, corpus, device="cuda"):
     check(idx.paging == "host_rerank" and idx.vectors is None, f"1 GiB opened tier {idx.paging}")
     check(added < PAGED_BUDGETS["host_rerank"], f"host_rerank holds {added} device bytes, over its budget")
     # ---- the main path, counted -----------------------------------------
-    reset_launches(slot_scan, binary_scan)
+    reset_launches(slot_scan, binary_scan, bm25)
     batch_hits = searcher.search(VectorSearchRequest(vectors=q_np, top_k=TOP_K))
     filt_hits = searcher.search(VectorSearchRequest(vectors=q_np[:64], top_k=TOP_K, filter=LabelAtom("/l/tenth")))
     floor_hits = searcher.search(VectorSearchRequest(vectors=q_np[64:80], top_k=TOP_K, min_score=0.9))
     dup_hits = searcher.search(VectorSearchRequest(vectors=q_np[:64], top_k=TOP_K, with_duplicates=True))
     launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+    bm25_launches = bm25.LAUNCHES.get("program", 0)  # a vector-only path: no keyword program
     # ----------------------------------------------------------------------
     check(launches.get("top2", 0) >= 4, f"top-2 slot-scan kernel launched {launches} on the host_rerank path")
     check(launches.get("top1", 0) == 0 and launches.get("binary", 0) == 0, f"host_rerank launched {launches}")
@@ -1148,7 +1173,7 @@ def phase_paged(torch, slot_scan, binary_scan, corpus, device="cuda"):
     )
     out["stream"]["breakdown"] = stream_breakdown(torch, idx, q_np, device)
     print(f"paged numbers: {json.dumps(out)}", flush=True)
-    return out["host_rerank"]["launches"]
+    return out["host_rerank"]["launches"], bm25_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1218,12 +1243,49 @@ def group_kernel_check(torch, slot_scan, group, i, masks, q_np, what) -> dict:
     return {"b": b, "n": n, "max_abs_err": err}
 
 
+def mesh_arena_check(torch, tmesh, queries) -> float:
+    """The single-arena program of ``MeshShardedTextEngine`` against its
+    plain version on member 0's own tiers, dense block and masks at its
+    shard's shape, bit for bit: one launch over the member's layout (the
+    DENSE_DIRECT base block) against ``engine._bm25_arena_final_plain``
+    (final rows, count rows, bitmaps), and the cuts of ``_bm25_arena``
+    against ``_bm25_arena_plain``, for ``queries`` as one batch and the
+    first alone. Returns the largest |difference|."""
+    from nucliadb_tpu_torch.index.text_engine import engine as teng
+    from nucliadb_tpu_torch.ops import bm25
+
+    t0 = time.perf_counter()
+    dev = tmesh.devices[0]
+    tiers, dense, dlen = tmesh.arenas[0]
+    layout = tmesh.layouts[0]
+    inputs = [tmesh.member_inputs(q)[0] for q in queries]
+    err = 0.0
+    for name, batch in ((f"batch of {len(inputs)}", inputs), ("single", inputs[:1])):
+        rows, idfs, params, masks = (torch.from_numpy(np.stack([x[i] for x in batch])).to(dev) for i in range(4))
+        got = bm25.launch_program(layout, tmesh.caps, masks, rows, idfs, params, True, False)[:3]
+        want = teng._bm25_arena_final_plain(tiers, dense, None, dlen, masks, rows, idfs, params, tmesh.caps, 0, True)
+        err = max(err, bm25_same(torch, got, want, f"mesh arena kernel, {name}"))
+        del got, want
+        k = queries[0].top_k
+        kern = teng._bm25_arena(tiers, dense, None, dlen, masks, rows, idfs, params, k, tmesh.caps, 0, True,
+                                layout=layout)
+        plain = teng._bm25_arena_plain(tiers, dense, None, dlen, masks, rows, idfs, params, k, tmesh.caps, 0, True)
+        err = max(err, bm25_same(torch, kern, plain, f"mesh arena program, {name}"))
+    print(f"bm25 kernel vs plain, mesh arena (member 0, n_pad {dlen.shape[0]}, caps {tmesh.caps}): a batch of "
+          f"{len(inputs)} and a single query, bit-identical final rows, counts, bitmaps and cuts "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    return err
+
+
 def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
     """The mesh on one card (see the module docstring): the vector group at
     bench_scatter4's shape over the slices' corpus, an uneven group, the
     sharded index (exact and int8), the keyword group, the sharded keyword
     and hybrid indexes, and ``search_multi``'s mesh branch over a node's 4
-    shards. Returns the top-2 launches of the counted group run."""
+    shards. Returns the top-2 launches of the counted vector group run, the
+    BM25 kernel's launches of the counted text group run and the largest
+    |difference| of the arena kernel from its plain version (None on the
+    CPU)."""
     import os
 
     import nucliadb_tpu_torch.index.vector.device as vdevice
@@ -1423,7 +1485,9 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
                                        filter=LabelAtom("/l/tenth") if i % 4 == 3 else None,
                                        all_terms=i % 8 == 5)
                 for i, b in enumerate(bodies)]
-        before = bm25.DISPATCHES.total()
+        # ---- the text group's main path, counted ----
+        bm25.DISPATCHES.clear()
+        bm25.LAUNCHES.clear()
         grouped = []
         for req in reqs:
             queries = [p.plan_kernel_query(req) for p in psearchers]
@@ -1431,8 +1495,12 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
             top_s, top_ic, counts = tgroup.search(queries, req.top_k)
             grouped.append([p.finish_kernel(req, q, top_s[i], top_ic[i], int(counts[i]))
                             for i, (p, q) in enumerate(zip(psearchers, queries))])
-        dispatched = bm25.DISPATCHES.total() - before
+        dispatched = bm25.DISPATCHES.total()
+        tg_launches = bm25.LAUNCHES.get("program", 0)
+        # ----
         check(dispatched == members * len(reqs), f"the text group dispatched {dispatched} programs")
+        check(tg_launches == (dispatched if device == "cuda" else 0),
+              f"the text group launched bm25_program {tg_launches} times")
         for req, got in zip(reqs, grouped):
             for p, g in zip(psearchers, got):
                 want = p.search(req)
@@ -1446,6 +1514,7 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
         tmesh = MeshShardedTextEngine(engines, grid)
         kq = [TextQuery(text=f"{words[int(rng.integers(0, 2000))]} {words[int(rng.integers(0, 2000))]}", top_k=KW_TOP_K)
               for _ in range(cfg["kw_engine_queries"])]
+        arena_err = mesh_arena_check(torch, tmesh, kq) if cuda else None
         for q in kq:
             ms_s, ms_i = tmesh.search(q)
             parts = [e.search(q, need_matched=False)[0] for e in engines]
@@ -1488,8 +1557,10 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
         hy_ms, _ = median_ms(lambda: hyb.search(hq, kq[0], TOP_K))
         out["keyword"] = {"build_s": t_kw, "group_ms": tg_ms, "sequential_ms": ts_ms, "engine_ms": te_ms,
                           "hybrid_ms": hy_ms, "hybrid_recall": h_rec}
+        out["keyword"].update(text_group_launches=tg_launches, arena_max_abs_err=arena_err)
         print(f"mesh keyword: {members} shards of {n} paragraphs (written and opened in {t_kw:.1f}s); text group "
-              f"= the sequential engines on {len(reqs)} requests ({dispatched} dispatches), a request {tg_ms:.2f} ms "
+              f"= the sequential engines on {len(reqs)} requests ({dispatched} dispatches, {tg_launches} launches "
+              f"of bm25_program), a request {tg_ms:.2f} ms "
               f"against {ts_ms:.2f} ms sequential; sharded engine = the engines' merge up to ties on {len(kq)} "
               f"queries, {te_ms:.2f} ms; hybrid of {len(hq)} x 1 = the host RRF of its merged legs, vector leg "
               f"recall@10 {h_rec:.4f}, {hy_ms:.2f} ms", flush=True)
@@ -1502,7 +1573,7 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
     # ---- serving: search_multi over a node's 4 shards ---------------------
     out["serving"] = mesh_serving(torch, slot_scan, tmp, cfg, device)
     print(f"mesh numbers: {json.dumps(out)}", flush=True)
-    return launches
+    return launches, tg_launches, arena_err
 
 
 def mesh_serving(torch, slot_scan, tmp, cfg, device):
@@ -1813,10 +1884,24 @@ def kw_dispatched(bm25, fn, what):
     return out
 
 
+BM25_DISPATCH_KEYS = ("single", "batch", "arena", "arena_batch")
+
+
+def bm25_kernel_served(counts, what, device) -> None:
+    """On the card, every BM25 dispatch of a counted path launched
+    ``csrc/bm25_program.cu`` once (``counts`` holds ``bm25.DISPATCHES`` and
+    ``bm25.LAUNCHES``); on the CPU the plain version counts no launch."""
+    dispatched = sum(counts.get(key, 0) for key in BM25_DISPATCH_KEYS)
+    launched = counts.get("program", 0)
+    check(launched == (dispatched if device == "cuda" else 0),
+          f"{what}: {dispatched} BM25 dispatches, {launched} launches of bm25_program")
+
+
 def phase_keyword(torch, tmp, cfg, device="cuda"):
     """The keyword leg on ``device`` (see the module docstring); prints one
-    line per part and returns the device-program dispatches of the counted
-    main path."""
+    line per part and returns the device-program dispatches and the
+    kernel's launches of the counted main path, and (on the card) the
+    kernel's numbers from ``phase_bm25_kernel``."""
     import threading
 
     from nucliadb_tpu_torch.index.paragraph import ParagraphSearcher, ParagraphSearchRequest, advanced_query_mask
@@ -1865,6 +1950,7 @@ def phase_keyword(torch, tmp, cfg, device="cuda"):
 
     # ---- the main path on the device route, counted ------------------------
     bm25.DISPATCHES.clear()
+    bm25.LAUNCHES.clear()
     coalesced0 = coalescer.dispatches
     or_out = kw_dispatched(bm25, lambda: engine.search_batch(or_q, need_matched=False), "OR batch")
     and_out = kw_dispatched(bm25, lambda: engine.search_batch(and_q, need_matched=False), "AND batch")
@@ -1876,11 +1962,15 @@ def phase_keyword(torch, tmp, cfg, device="cuda"):
     phrase_resp = kw_dispatched(bm25, lambda: para.search(phrase_req), "phrase request")
     adv_resp = kw_dispatched(bm25, lambda: para.search(adv_req), "advanced_query request")
     threads = [threading.Thread(target=worker, args=(threaded[i :: cfg["threads"]],)) for i in range(cfg["threads"])]
+    t = time.perf_counter()
     kw_dispatched(bm25, lambda: [th.start() for th in threads] + [th.join(timeout=600) for th in threads], "threaded requests")
+    t_burst = (time.perf_counter() - t) * 1e3
     doc_resps = [kw_dispatched(bm25, lambda r=r: docs.search(r), f"document request {i}") for i, r in enumerate(doc_reqs)]
     dispatches = dict(bm25.DISPATCHES)
+    launches = dict(bm25.LAUNCHES)
     coalesced = coalescer.dispatches - coalesced0
     # -----------------------------------------------------------------------
+    bm25_kernel_served(dict(dispatches, **launches), "keyword device route", device)
     check(not any(th.is_alive() for th in threads) and len(threaded_out) == len(threaded), "threaded requests did not finish")
     check(coalesced < len(threaded), f"{len(threaded)} threaded requests took {coalesced} dispatches")
 
@@ -1929,9 +2019,35 @@ def phase_keyword(torch, tmp, cfg, device="cuda"):
         f"uploaded, {mem / 2**30:.2f} GiB on the card); dispatches {dispatches}; {len(threaded)} threaded requests "
         f"in {coalesced} coalesced dispatches; oracle (float64) agrees on {n_oracle} OR + {n_oracle} AND queries, "
         f"the single, 4 filtered, phrase, advanced_query and {len(doc_reqs) - 1} document requests; "
-        f"both batches bit-identical on a second run",
+        f"both batches bit-identical on a second run; bm25_program launches {launches}",
         flush=True,
     )
+
+    # ---- launches a request, the burst against one after another ----------
+    t = time.perf_counter()
+    for r in threaded:
+        para.search(r)
+    t_seq = (time.perf_counter() - t) * 1e3
+    per_request = program = None
+    if device == "cuda":
+        per_request = device_launches(torch, lambda: [para.search(r) for r in threaded[:8]]) / 8
+        terms, required = engine._plan_terms(single_q)
+        rows_np, idfs_np, params_np, caps = engine._device_inputs_planned(terms, required, single_q)
+        single_in = [torch.from_numpy(a).to(engine.device) for a in (rows_np, idfs_np, params_np)]
+        program = device_launches(torch, lambda: bm25.bm25_groups(
+            engine._group_tensors(), engine._offsets(), engine.base_mask_device(), *single_in, KW_TOP_K, caps,
+            tuple(engine._tier_group_counts()), False, layout=engine.program_layout(),
+        ))
+    print(
+        f"keyword launches: {per_request} a device-route request (kernels, copies and fills on the card, "
+        f"torch.profiler, mean of 8 ParagraphSearcher requests), {program} of them the BM25 program's (a single "
+        f"query's bm25_groups alone: the kernel, the cut); {len(threaded)} requests from {cfg['threads']} threads "
+        f"{t_burst:.1f} ms against {t_seq:.1f} ms one after another ({t_burst / t_seq:.3f}x)",
+        flush=True,
+    )
+
+    # ---- the kernel against its plain version at the main path's shapes ----
+    kernel = phase_bm25_kernel(torch, engine, or_q, and_q, single_q) if device == "cuda" else None
 
     # ---- the default route (the cost model) --------------------------------
     engine._host_tier_cached = tier
@@ -1991,7 +2107,7 @@ def phase_keyword(torch, tmp, cfg, device="cuda"):
     del para2, fresh
     if device == "cuda":
         torch.cuda.empty_cache()
-    return dispatches
+    return SimpleNamespace(dispatches=dispatches, launches=launches.get("program", 0), kernel=kernel)
 
 
 def engine_hit(hit, doc_id=None):
@@ -2052,7 +2168,8 @@ def kw_breakdown(torch, para, or_q, and_q, tier, device):
             lambda: torch.zeros(n_q * (L + 1), device=dev).index_add_(0, all_idx, all_w), 5
         ),
         "scatter_index_put_deterministic_algorithms": timed(put_deterministic, 3),
-        "topk_cut": timed(lambda: bm25.cut(scores[:, :L], None, mask, params[:, 1], params[:, 2], k), 5),
+        "topk_cut": timed(lambda: bm25.topk_cut(bm25.epilogue(scores[:, :L], None, mask, params[:, 1], params[:, 2])[0],
+                                                None, k), 5),
         # what masked_topk's select path replaces: a stable sort of the whole axis
         "topk_full_stable_sort": timed(lambda: torch.sort(scores[:, :L], dim=-1, descending=True, stable=True), 3),
         "dense_columns": timed(
@@ -2104,6 +2221,195 @@ def kw_breakdown(torch, para, or_q, and_q, tier, device):
         out["peak_gib_or_batch"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
     out = {key: (round(v, 3) if isinstance(v, float) else v) for key, v in out.items()}
     return f"breakdown keyword (ms, batch {n_q}, {engine.n_docs} paragraphs): {json.dumps(out)}"
+
+
+def device_launches(torch, fn) -> int:
+    """Kernels, copies and fills that ``fn()`` put on the card, counted by
+    ``torch.profiler`` (CUDA activity), after one warm-up call. A profile
+    that saw no device event at all (a profile right after another has come
+    back empty on the H100) is taken again, at most three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    check(False, "torch.profiler saw no device event in three profiles")
+
+
+def bm25_bound_ms(torch, bm25, layout, caps, masks, rows, with_counts: bool, count_only: bool, k: int,
+                  n_chunks: int) -> tuple[float, dict]:
+    """The least time of the kernel's work on an H100, from this run's data:
+    its bytes at the HBM rate (its few operations a lane are far below the
+    f32 rate). Read once: the doc ids of every scheduled posting row (4 B a
+    lane), tf and dl of each valid lane (8 B), each scheduled dense slot's
+    window (1 B a column) and each dense block's dl window (4 B a column),
+    the mask, rows, idfs and params; a 32 B sector for each valid lane's
+    random score update (and count update); written once: final (4 B a
+    column), the count row (4 B, with counts), the matched bitmap (1 B,
+    unless ``count_only``) and the blocks' cuts (12 B an entry). Returns
+    (ms, the counts it used)."""
+    n_q, n_slots = rows.shape
+    L = masks.shape[-1]
+    starts = np.concatenate([[0], np.cumsum(caps)])
+    lanes = valid = dense_bytes = 0
+    for rec in layout.records:
+        block = rec.tensors[0]
+        n_rows, width = block.shape
+        lo, hi = int(starts[rec.slot]), int(starts[rec.slot + 1])
+        for j in range(lo, hi):
+            sel = rows[:, j].long()
+            ok = (sel >= 0) & (sel < n_rows)
+            if rec.kind == bm25.POSTING:
+                lanes += int(ok.sum()) * width
+                valid += int(((block[sel.clamp(0, n_rows - 1)] >= 0) & ok[:, None]).sum())
+            else:
+                dense_bytes += int(ok.sum()) * width
+        if rec.kind != bm25.POSTING and hi > lo:
+            dense_bytes += 4 * width
+    sector = 32 * (2 if with_counts else 1)
+    total = (4 * lanes + (8 + sector) * valid + dense_bytes + masks.numel() + 8 * n_q * n_slots + 12 * n_q
+             + n_q * L * (4 + (4 if with_counts else 0) + (0 if count_only else 1)) + 12 * n_q * n_chunks * k)
+    return total / HBM_BYTES_PER_S * 1e3, {"lanes": lanes, "valid_lanes": valid, "bytes": total}
+
+
+def bm25_same(torch, got, want, what) -> float:
+    """``got`` equals ``want`` bit for bit (tensors, or None on both
+    sides): f32 as int32 bits, the rest exactly. Returns the largest
+    |difference| of the f32 tensors (0.0)."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None or w is None:
+            check(g is None and w is None, f"{what}: output {i} on one side only")
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape, f"{what}: output {i} {g.dtype} {tuple(g.shape)} "
+              f"against {w.dtype} {tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            check(torch.equal(g.view(torch.int32), w.view(torch.int32)), f"{what}: output {i} differs")
+            err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+        else:
+            check(torch.equal(g, w), f"{what}: output {i} differs")
+    return err
+
+
+def bm25_group_check(torch, engine, name, k, caps, rows, idfs, params, mask, with_counts, count_only) -> float:
+    """The kernel against its plain version on ``engine``'s groups, bit for
+    bit: one launch's final rows, count rows and bitmaps or counts against
+    ``bm25.plain_final``, and the whole program (kernel, block cuts, merge)
+    against ``bm25.plain_program``. Returns the largest |difference|."""
+    from nucliadb_tpu_torch.ops import bm25
+
+    groups, offs, tc = engine._group_tensors(), engine._offsets(), tuple(engine._tier_group_counts())
+    layout = engine.program_layout()
+    got = bm25.launch_program(layout, caps, mask, rows, idfs, params, with_counts, count_only)[:3]
+    want = bm25.plain_final(groups, offs, mask, rows, idfs, params, caps, tc, with_counts)
+    if count_only:
+        want = (want[0], want[1], want[2].sum(dim=-1))
+    err = bm25_same(torch, got, want, f"bm25 kernel, {name}")
+    del got, want
+    args = (groups, offs, mask, rows, idfs, params, k, caps, tc)
+    kern = bm25._program(*args, with_counts, count_only, layout=layout)
+    plain = bm25.plain_program(*args, with_counts, count_only)
+    return max(err, bm25_same(torch, kern, plain, f"bm25 program, {name}"))
+
+
+def bm25_engine_check(torch, engine, queries, what) -> float:
+    """``bm25_group_check`` at ``engine``'s shape: ``queries`` as one batch
+    (hit counts, the counts only) and the first alone (its bitmap)."""
+    dev = engine.device
+
+    def upload(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    t0 = time.perf_counter()
+    k, caps, rows, idfs, params = engine.plan_batch(queries)
+    err = bm25_group_check(torch, engine, f"{what}, batch of {len(queries)}", k, caps, *upload(rows, idfs, params),
+                           engine.base_mask_device(), True, True)
+    terms, required = engine._plan_terms(queries[0])
+    rows, idfs, params, caps = engine._device_inputs_planned(terms, required, queries[0])
+    err = max(err, bm25_group_check(torch, engine, f"{what}, single", min(queries[0].top_k, engine.n_pad), caps,
+                                    *upload(rows[None], idfs[None], params[None]), engine.base_mask_device(),
+                                    bool(queries[0].all_terms), False))
+    print(f"bm25 kernel vs plain, {what} (L={engine.n_pad}, {len(engine.groups)} groups): a batch of "
+          f"{len(queries)} and a single query, bit-identical final rows, counts, bitmaps and cuts "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    return err
+
+
+def phase_bm25_kernel(torch, engine, or_q, and_q, single_q) -> dict:
+    """``csrc/bm25_program.cu`` against its plain version on the keyword
+    phase's engine, at the main path's three shapes: the OR batch of 512
+    (no counts, the counts only), the AND batch (hit counts) and a single
+    request (its bitmap), bit for bit (``bm25_group_check``). Times (CUDA
+    events): the kernel as the main path launches it (rows and the blocks'
+    cuts), the kernel without the cut, the plain version of the program
+    (rows and ``ops/topk.py``'s cut), the whole program on the card (the
+    kernel and the merge), and a yardstick: one ``index_add_`` of all of
+    the batch's lanes (the plain version's, padding sent to the sink
+    column) into [Q, L + 1] (atomics in no fixed order: the scatter
+    alone). Prints one line a shape and returns the numbers."""
+    from nucliadb_tpu_torch.ops import bm25
+
+    t0 = time.perf_counter()
+    groups, offs, tc = engine._group_tensors(), engine._offsets(), tuple(engine._tier_group_counts())
+    layout = engine.program_layout()
+    base_mask = engine.base_mask_device()
+    L = base_mask.shape[0]
+    dev = engine.device
+
+    def upload(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    shapes = []
+    for name, queries, with_counts in (("OR 512", or_q, False), ("AND 512", and_q, True)):
+        k, caps, rows, idfs, params = engine.plan_batch(queries)
+        shapes.append((name, k, caps, *upload(rows, idfs, params), base_mask, with_counts, True))
+    terms, required = engine._plan_terms(single_q)
+    rows, idfs, params, caps = engine._device_inputs_planned(terms, required, single_q)
+    shapes.append(("single", KW_TOP_K, caps, *upload(rows[None], idfs[None], params[None]), base_mask,
+                   bool(single_q.all_terms), False))
+
+    out = {}
+    for name, k, caps, rows, idfs, params, mask, with_counts, count_only in shapes:
+        err = bm25_group_check(torch, engine, name, k, caps, rows, idfs, params, mask, with_counts, count_only)
+        args = (groups, offs, mask, rows, idfs, params, k, caps, tc)
+        reps = 3 if rows.shape[0] > 1 else 20
+        parts = bm25.gather_weights(groups, offs, rows, idfs, params[:, 0], caps, tc, L)
+        base = torch.arange(rows.shape[0], device=dev)[:, None, None] * (L + 1)
+        all_idx = torch.cat([(ids + base).reshape(-1) for ids, _, _ in parts])
+        all_w = torch.cat([w.reshape(-1) for _, w, _ in parts])
+        acc = torch.zeros(rows.shape[0] * (L + 1), device=dev)
+        del parts
+        row = {
+            "ms": cuda_ms(lambda: bm25.launch_program(layout, caps, mask, rows, idfs, params, with_counts,
+                                                      count_only, k), reps),
+            "rows_ms": cuda_ms(lambda: bm25.launch_program(layout, caps, mask, rows, idfs, params, with_counts,
+                                                           count_only), reps),
+            "plain_ms": cuda_ms(lambda: bm25.plain_program(*args, with_counts, count_only), reps),
+            "program_ms": cuda_ms(lambda: bm25._program(*args, with_counts, count_only, layout=layout), reps),
+            "library_ms": cuda_ms(lambda: acc.index_add_(0, all_idx, all_w), reps),
+            "max_abs_err": err,
+        }
+        del all_idx, all_w, acc
+        n_chunks = bm25.chunking(rows.shape[0], L, torch.cuda.get_device_properties(dev).multi_processor_count)[1]
+        row["bound_ms"], used = bm25_bound_ms(torch, bm25, layout, caps, mask, rows, with_counts, count_only, k,
+                                              n_chunks)
+        row["share"] = row["bound_ms"] / row["ms"]
+        row.update(used, blocks_a_row=n_chunks, table_records=len(layout.table(caps, L)[0]))
+        out[name] = row
+        print(f"bm25 kernel vs plain, {name} (Q={rows.shape[0]}, L={L}, k={k}, with_counts={with_counts}, "
+              f"count_only={count_only}): bit-identical final rows, counts, bitmaps and cuts; "
+              f"{json.dumps({key: round(v, 4) if isinstance(v, float) else v for key, v in row.items()})}",
+              flush=True)
+        torch.cuda.empty_cache()
+    print(f"bm25 kernel phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
 
 
 def host_ms(fn, reps: int) -> float:
@@ -2405,8 +2711,9 @@ def phase_node(torch, tmp, cfg, device="cuda"):
     os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
     reset_launches(slot_scan, binary_scan)
     bm25.DISPATCHES.clear()
+    bm25.LAUNCHES.clear()
     default_out = [node.search(sid, r) for r in reqs]
-    default_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+    default_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES, **bm25.LAUNCHES)
     os.environ["NDBTPU_TEXT_HOST_TIER"] = "0"  # set before the device-route node's searcher opens
     node_dev = EmbeddedNode(node_dir, device=device)  # a second node over the same data directory
     t = time.perf_counter()
@@ -2415,14 +2722,17 @@ def phase_node(torch, tmp, cfg, device="cuda"):
     t_open_dev = time.perf_counter() - t
     reset_launches(slot_scan, binary_scan)
     bm25.DISPATCHES.clear()
+    bm25.LAUNCHES.clear()
     device_out = [node_dev.search(sid, r) for r in reqs]
-    device_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+    device_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES, **bm25.LAUNCHES)
     # ---------------------------------------------------------------------------
     if device == "cuda":  # on the CPU the wrappers take their plain versions, which count nothing
         check(default_counts.get("top2", 0) >= n_h, f"default route: the top-2 kernel launched {default_counts}")
         check(device_counts.get("top2", 0) >= n_h, f"device route: the top-2 kernel launched {device_counts}")
     check(device_counts.get("single", 0) + device_counts.get("batch", 0) >= n_h,
           f"device route: the BM25 program dispatched {device_counts}")
+    bm25_kernel_served(device_counts, "node, device route", device)
+    bm25_kernel_served(default_counts, "node, default route", device)
     check(shard_dev.paragraph.engine.host_tier() is None, "the device-route searcher kept the host tier")
     if tier is not None:
         check(default_counts.get("single", 0) + default_counts.get("batch", 0) == 0,
@@ -2464,6 +2774,9 @@ def phase_node(torch, tmp, cfg, device="cuda"):
             busy = device_busy_ms(torch, lambda: [node_x.search(sid, r) for r in reqs[:16]]) / 16
             timings[f"device_busy_per_hybrid_{name}"] = busy
             timings[f"device_idle_share_{name}"] = 1.0 - busy / timings[f"hybrid_{name}"]
+            # kernels, copies and fills on the card a request (torch.profiler)
+            timings[f"launches_per_hybrid_{name}"] = device_launches(
+                torch, lambda: [node_x.search(sid, r) for r in reqs[:16]]) / 16
 
     # ---- coalescers: threaded requests on both routes -------------------------
     n_t = cfg["threaded"]
@@ -2618,7 +2931,9 @@ def phase_node(torch, tmp, cfg, device="cuda"):
     timings = {key: round(v, 3) for key, v in timings.items()}
     print(
         f"node timings (host ms, median of 5; device busy ms per request from torch.profiler over 16 requests, idle "
-        f"share against the unprofiled median): {json.dumps(timings)}; threaded bursts (ms) {json.dumps(t_burst)}",
+        f"share against the unprofiled median): {json.dumps(timings)}; threaded bursts (ms) {json.dumps(t_burst)}; "
+        f"burst against one after another: device route {t_burst['device'] / t_seq['device']:.3f}x, default route "
+        f"{t_burst['default'] / t_seq['default']:.3f}x",
         flush=True,
     )
     del node, shard
@@ -2856,8 +3171,9 @@ def phase_find(torch, tmp, cfg, device="cuda"):
     os.environ.pop("NDBTPU_TEXT_HOST_TIER", None)
     reset_launches(slot_scan, binary_scan)
     bm25.DISPATCHES.clear()
+    bm25.LAUNCHES.clear()
     default_out, default_ms = timed(app.search, reqs)
-    default_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+    default_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES, **bm25.LAUNCHES)
     default_resp = [r[0] for r in seen]
     os.environ["NDBTPU_TEXT_HOST_TIER"] = "0"  # set before the device-route node's searcher opens
     dev = stack(EmbeddedNode(node_dir, device=device))  # a second node over the same data directory
@@ -2866,8 +3182,9 @@ def phase_find(torch, tmp, cfg, device="cuda"):
     seen_dev = find_capture(dev.node)
     reset_launches(slot_scan, binary_scan)
     bm25.DISPATCHES.clear()
+    bm25.LAUNCHES.clear()
     device_out, device_ms = timed(dev.search, reqs)
-    device_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+    device_counts = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES, **bm25.LAUNCHES)
     device_resp = [r[0] for r in seen_dev]
     # ---------------------------------------------------------------------------
     check(len(default_resp) == len(device_resp) == n_req, "a /find did not make exactly one shard fan-out")
@@ -2876,6 +3193,13 @@ def phase_find(torch, tmp, cfg, device="cuda"):
         check(device_counts.get("top2", 0) >= n_req, f"device route: the top-2 kernel launched {device_counts}")
     check(device_counts.get("single", 0) + device_counts.get("batch", 0) >= n_req,
           f"device route: the BM25 program dispatched {device_counts}")
+    bm25_kernel_served(device_counts, "/find, device route", device)
+    bm25_kernel_served(default_counts, "/find, default route", device)
+    find_kernel_err = None
+    if device == "cuda":  # the kernel against its plain version at this engine's shape, outside the count
+        find_kernel_err = bm25_engine_check(
+            torch, shard_dev.paragraph.engine, [TextQuery(text=r.query, top_k=FIND_TOP_K) for r in reqs[:8]],
+            "/find device-route engine")
     check(shard_dev.paragraph.engine.host_tier() is None, "the device-route searcher kept the host tier")
     if shard.paragraph.engine.host_tier() is not None:
         check(default_counts.get("single", 0) + default_counts.get("batch", 0) == 0,
@@ -3027,6 +3351,7 @@ def phase_find(torch, tmp, cfg, device="cuda"):
     return SimpleNamespace(
         default=default_counts, device=device_counts, kbid=kbid, sid=sid, reqs=reqs, corpus=corpus, rows=rows,
         default_out=default_out, device_out=device_out, default_resp=default_resp, device_resp=device_resp,
+        kernel_err=find_kernel_err,
     )
 
 
@@ -3205,14 +3530,16 @@ def phase_http(torch, tmp, find, cfg, device="cuda"):
         # ---- the main path, counted: the 64 hybrid requests over HTTP ------
         reset_launches(slot_scan, binary_scan)
         bm25.DISPATCHES.clear()
+        bm25.LAUNCHES.clear()
         out = [srv.find(kbid, b) for b in bodies]
-        c = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES)
+        c = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.DISPATCHES, **bm25.LAUNCHES)
         # ----------------------------------------------------------------------
         tier = app.node.searcher.shard(shards[0]).paragraph.engine.host_tier()
         if device == "cuda":  # on the CPU the wrappers take their plain versions, which count nothing
             check(c.get("top2", 0) >= n_req, f"{name}: the top-2 kernel launched {c}")
         check(c.get("top1", 0) == 0 and c.get("binary", 0) == 0, f"{name}: a kernel of another route launched {c}")
         bm25_n = c.get("single", 0) + c.get("batch", 0)
+        bm25_kernel_served(c, f"HTTP, {name} route", device)
         if name == "device":
             check(tier is None and bm25_n >= n_req, f"device route: the BM25 program dispatched {c}")
         elif tier is not None:
@@ -3398,10 +3725,10 @@ CLUSTER_FULL = {
 CLUSTER_CHILD = """
 import json, os, signal, sys
 import torch
-from nucliadb_tpu_torch.ops import binary_scan, slot_scan
+from nucliadb_tpu_torch.ops import binary_scan, bm25, slot_scan
 counts = sys.argv.pop(1)
 def report(*_):
-    out = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, cuda_initialized=torch.cuda.is_initialized())
+    out = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.LAUNCHES, cuda_initialized=torch.cuda.is_initialized())
     if out["cuda_initialized"]:  # what its caching allocator holds on the card (its context not included)
         out["torch_reserved_mib"] = torch.cuda.memory_reserved() / 2**20
     with open(counts + ".tmp", "w") as f:
@@ -3492,7 +3819,7 @@ def nvidia_smi(query: str) -> list:
 
 
 def delta(after: dict, before: dict) -> dict:
-    return {k: after.get(k, 0) - before.get(k, 0) for k in ("top1", "top2", "binary")}
+    return {k: after.get(k, 0) - before.get(k, 0) for k in ("top1", "top2", "binary", "program")}
 
 
 def proto_search(address, sid, req) -> dict:
@@ -3907,7 +4234,7 @@ def phase_ops(torch, tmp, find, cfg, device="cuda"):
     import sys
 
     from nucliadb_tpu_torch.metadata import MetadataStore
-    from nucliadb_tpu_torch.ops import binary_scan, slot_scan
+    from nucliadb_tpu_torch.ops import binary_scan, bm25, slot_scan
     from nucliadb_tpu_torch.sdk import NucliaDBClient
     from nucliadb_tpu_torch.services import EmbeddedNode
     from nucliadb_tpu_torch.settings import StorageSettings
@@ -4010,13 +4337,13 @@ def phase_ops(torch, tmp, find, cfg, device="cuda"):
             sdk = NucliaDBClient(srv.base, timeout=600)
             try:
                 # ---- the main path, counted: the SDK's /find --------------------
-                reset_launches(slot_scan, binary_scan)
+                reset_launches(slot_scan, binary_scan, bm25)
                 sdk_out, sdk_ms = [], []
                 for req in reqs:
                     t = time.perf_counter()
                     sdk_out.append(sdk.find(kbid, req))
                     sdk_ms.append((time.perf_counter() - t) * 1e3)
-                sdk_launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+                sdk_launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.LAUNCHES)
                 # ------------------------------------------------------------------
             finally:
                 sdk.close()
@@ -4082,13 +4409,13 @@ def phase_ops(torch, tmp, find, cfg, device="cuda"):
         check(not os.path.exists(f"{remote}/blobs"), "the S3-backed node wrote a local blob store")
         reqs_node = [node_hybrid(corpus, i) for i in range(n_req)]
         # ---- the main path, counted: the S3-backed node's hybrid requests ------
-        reset_launches(slot_scan, binary_scan)
+        reset_launches(slot_scan, binary_scan, bm25)
         s3_out, s3_ms = [], []
         for req in reqs_node:
             t = time.perf_counter()
             s3_out.append(s3_node.search(sid, req))
             s3_ms.append((time.perf_counter() - t) * 1e3)
-        s3_launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
+        s3_launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES, **bm25.LAUNCHES)
         # ----------------------------------------------------------------------
         t_first = t_sync + s3_ms[0] / 1e3
         segments = [seg for index in s3_node.metadata.get_indexes(sid)
@@ -4124,7 +4451,7 @@ def phase_ops(torch, tmp, find, cfg, device="cuda"):
     )
     check(phase_s <= cfg["budget_s"], f"phase_ops took {phase_s:.1f}s > {cfg['budget_s']}s")
     return SimpleNamespace(sdk=sdk_launches, s3=s3_launches,
-                           launches={k: sdk_launches.get(k, 0) + s3_launches.get(k, 0) for k in ("top1", "top2", "binary")},
+                           launches={k: sdk_launches.get(k, 0) + s3_launches.get(k, 0) for k in ("top1", "top2", "binary", "program")},
                            timings={"cli_s": cli_s, "sdk_p50_ms": sdk_p50, "raw_p50_ms": raw_p50,
                                     "raw_after_p50_ms": raw_after_p50, "s3_put_s": t_put,
                                     "s3_sync_s": t_sync, "first_answer_s": t_first, "phase_s": phase_s},
@@ -4828,7 +5155,7 @@ def main() -> None:
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    from nucliadb_tpu_torch.ops import binary_scan, quant, slot_scan
+    from nucliadb_tpu_torch.ops import binary_scan, bm25, quant, slot_scan
     from nucliadb_tpu_torch.utils import kernels
 
     name = torch.cuda.get_device_name(0)
@@ -4846,8 +5173,9 @@ def main() -> None:
     for src in SOURCES:
         kernels.load(src)
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t:.1f}s", flush=True)
-    for line in ptxas_report(kernels, "int8_slot_scan"):
-        print(f"ptxas int8_slot_scan.cu: {line}", flush=True)
+    for src in ("int8_slot_scan", "bm25_program"):
+        for line in ptxas_report(kernels, src):
+            print(f"ptxas {src}.cu: {line}", flush=True)
 
     max_err, kernel_ms, plain_ms = phase_kernels(torch, slot_scan)
     print(
@@ -4893,13 +5221,13 @@ def main() -> None:
         phase_binary_breakdown(torch, searcher, corpus.q_np)
         del searcher
         torch.cuda.empty_cache()
-        paged_launches = phase_paged(torch, slot_scan, binary_scan, corpus)
+        paged_launches, paged_bm25 = phase_paged(torch, slot_scan, binary_scan, corpus)
         seconds["slices"], t = time.perf_counter() - t, time.perf_counter()
-        mesh_launches = phase_mesh(torch, slot_scan, corpus, tmp, MESH_FULL)
+        mesh_launches, mesh_bm25, mesh_bm25_err = phase_mesh(torch, slot_scan, corpus, tmp, MESH_FULL)
         corpus.free(torch)
     seconds["mesh"], t = time.perf_counter() - t, time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        phase_keyword(torch, tmp, KW_FULL)
+        keyword = phase_keyword(torch, tmp, KW_FULL)
     seconds["keyword"], t = time.perf_counter() - t, time.perf_counter()
     with (
         tempfile.TemporaryDirectory() as node_tmp,
@@ -4985,6 +5313,25 @@ def main() -> None:
         if src == int8_src:
             row["product_library_ms"] = product_ms  # torch._int_mm at TIMED_SHAPE: the product alone
         rows.append(row)
+    # the BM25 program (an XLA program in the JAX package, no Pallas kernel):
+    # its numbers at the OR batch of 512 (phase_bm25_kernel prints all three
+    # shapes), launches on each phase's counted path (the mesh's: the text
+    # group's), the largest |difference| of every comparison
+    bm = keyword.kernel["OR 512"]
+    rows.append({
+        "name": "bm25_program", "route": "cuda", "source": "nucliadb_tpu_torch/csrc/bm25_program.cu",
+        "replaces": "nucliadb_tpu/index/text_engine/engine.py:1756", "launches": keyword.launches,
+        "node_launches": node.default.get("program", 0) + node.device.get("program", 0),
+        "find_launches": find.default.get("program", 0) + find.device.get("program", 0),
+        "http_launches": http.default.get("program", 0) + http.device.get("program", 0),
+        "paged_launches": paged_bm25, "mesh_launches": mesh_bm25,
+        "cluster_launches": cluster.launches.get("program", 0), "ops_launches": ops.launches.get("program", 0),
+        "max_abs_err": max([r["max_abs_err"] for r in keyword.kernel.values()] + [mesh_bm25_err, find.kernel_err]),
+        "ms": bm["ms"],
+        "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"], "bound_by": "bytes",
+        # one index_add_ of all of the batch's lanes: the scatter alone
+        "library_ms": bm["library_ms"], "share": bm["bound_ms"] / bm["ms"],
+    })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
 

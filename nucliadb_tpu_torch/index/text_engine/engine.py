@@ -1102,6 +1102,17 @@ class DeviceTextEngine:
         """Each group's first doc id in the score space."""
         return tuple(int(o) for o in self.group_offsets[:-1])
 
+    def program_layout(self) -> "Optional[bm25.Layout]":
+        """The BM25 kernel's layout of this engine's groups, built at the
+        first dispatch (an engine is one refresh: its groups never change);
+        None on the CPU, where the plain version runs."""
+        if self.device.type != "cuda":
+            return None
+        layout = getattr(self, "_program_layout", None)
+        if layout is None:
+            layout = self._program_layout = bm25.group_layout(self._group_tensors(), self._offsets())
+        return layout
+
     # ------------------------------------------------------------------
     # search
     # ------------------------------------------------------------------
@@ -1179,6 +1190,7 @@ class DeviceTextEngine:
             self._group_tensors(), self._offsets(),
             mask_t, all_rows, all_idfs, params, k, caps,
             tuple(self._tier_group_counts()), bool(query.all_terms),
+            layout=self.program_layout(),
         )
         if need_matched:
             # all three output buffers fetch behind ONE device wait
@@ -1306,6 +1318,7 @@ class DeviceTextEngine:
             tuple(self._tier_group_counts()),
             shared_mask=unfiltered, count_only=not need_matched,
             with_counts=any(q.all_terms for q in queries),
+            layout=self.program_layout(),
         )
         return _PendingTextBatch(
             self, list(queries), k, need_matched, top_s, top_ic, matched
@@ -1584,10 +1597,55 @@ def _build_tier_matrices(terms_sorted, group_offsets, pdocs, ptfs, widths, dl):
 
 def _bm25_arena(
     tiers, dense_tf, odense_tf, dlen, masks, rows, idfs, params, k, caps,
-    odense_base, with_counts,
+    odense_base, with_counts, count_only=False, layout=None,
 ):
     """``_bm25_search`` for Q queries at once: ``rows``/``idfs`` [Q, W],
-    ``params`` [Q, 3], ``masks`` [n_pad] (shared) or [Q, n_pad].
+    ``params`` [Q, 3], ``masks`` [n_pad] (shared) or [Q, n_pad]. The third
+    output is the matched bitmaps, or their [Q] counts under
+    ``count_only``. On a CUDA device it is one launch of
+    ``csrc/bm25_program.cu`` over ``layout`` (the caller's
+    ``bm25.arena_layout`` of the arena, or one built here) and the
+    overlay's block, then the merge of the blocks' cuts; on the CPU the
+    plain version, ``_bm25_arena_plain``; there is no fallback between the
+    two."""
+    n_tiers = len(tiers)
+    if len(caps) != n_tiers + 2:
+        raise ValueError(f"caps {caps} do not match {n_tiers} tiers + dense + overlay dense")
+    if rows.device.type == "cuda":
+        if dense_tf is None and caps[-2] > 0:
+            raise ValueError("dense slots scheduled without a dense block")
+        if layout is None:
+            layout = bm25.arena_layout(tiers, dense_tf, dlen)
+        overlay = None
+        if odense_tf is not None and caps[-1] > 0:
+            overlay = bm25.overlay_layout(odense_tf, dlen, n_tiers + 1, odense_base)
+        return bm25.run_kernel(layout, caps, masks, rows, idfs, params, k, with_counts, count_only, overlay)
+    if rows.device.type != "cpu":
+        raise ValueError(f"unsupported device {rows.device}")
+    return _bm25_arena_plain(
+        tiers, dense_tf, odense_tf, dlen, masks, rows, idfs, params, k, caps,
+        odense_base, with_counts, count_only,
+    )
+
+
+def _bm25_arena_plain(
+    tiers, dense_tf, odense_tf, dlen, masks, rows, idfs, params, k, caps,
+    odense_base, with_counts, count_only=False,
+):
+    """The plain version of ``_bm25_arena``, torch ops on any device."""
+    final, counts, matched = _bm25_arena_final_plain(
+        tiers, dense_tf, odense_tf, dlen, masks, rows, idfs, params, caps, odense_base, with_counts,
+    )
+    top_s, top_ic = bm25.topk_cut(final, counts, k)
+    return top_s, top_ic, matched.sum(dim=-1) if count_only else matched
+
+
+def _bm25_arena_final_plain(
+    tiers, dense_tf, odense_tf, dlen, masks, rows, idfs, params, caps,
+    odense_base, with_counts,
+):
+    """What the kernel writes for ``_bm25_arena``, torch ops on any device:
+    (final [Q, n_pad], counts [Q, n_pad] or None, matched [Q, n_pad]).
 
     The reference's one scatter of every tier's lanes becomes one
     ``index_add_`` per slot in the same (tier, slot) order, with padding
@@ -1597,8 +1655,6 @@ def _bm25_arena(
     overlay window starts at ``odense_base`` clamped to ``[0, n_pad -
     opad]``, as ``lax.dynamic_slice`` clamps it."""
     n_tiers = len(tiers)
-    if len(caps) != n_tiers + 2:
-        raise ValueError(f"caps {caps} do not match {n_tiers} tiers + dense + overlay dense")
     starts = np.concatenate([[0], np.cumsum(caps)]).tolist()
     avgdl, required, min_score = params[:, 0], params[:, 1], params[:, 2]
     n_pad = dlen.shape[0]
@@ -1644,12 +1700,13 @@ def _bm25_arena(
         if with_counts:
             counts[:, base : base + opad] = counts[:, base : base + opad] + ocounts
 
-    return bm25.cut(scores, counts, masks, required, min_score, k)
+    final, matched = bm25.epilogue(scores, counts, masks, required, min_score)
+    return final, counts, matched
 
 
 def _bm25_search(
     tiers, dense_tf, odense_tf, dlen, mask, all_rows, all_idfs, params, k,
-    caps, odense_base=0, with_counts=True,
+    caps, odense_base=0, with_counts=True, *, layout=None,
 ):
     """One query over tiered postings and dense columns
     (``nucliadb_tpu/index/text_engine/engine.py:1634``).
@@ -1660,11 +1717,12 @@ def _bm25_search(
     tier, then the base dense cap, then the overlay dense cap;
     ``odense_tf`` the overlay's local dense block [R, opad] whose column j
     is doc ``odense_base + j`` (None without an overlay). Returns (top
-    scores [k], [k ids | k counts] [2k], matched [n_pad])."""
+    scores [k], [k ids | k counts] [2k], matched [n_pad]). ``layout``: the
+    caller's ``bm25.arena_layout`` of the arena, kept across calls."""
     bm25.DISPATCHES.add("arena")
     top_s, top_ic, matched = _bm25_arena(
         tiers, dense_tf, odense_tf, dlen, mask, all_rows[None], all_idfs[None],
-        params[None], k, caps, odense_base, with_counts,
+        params[None], k, caps, odense_base, with_counts, layout=layout,
     )
     return top_s[0], top_ic[0], matched[0]
 
@@ -1673,7 +1731,7 @@ def _bm25_search_batch(
     tiers, dense_tf, odense_tf, dlen, masks, all_rows, all_idfs, params, k,
     caps, odense_base,
     shared_mask: bool = False, count_only: bool = False,
-    with_counts: bool = True,
+    with_counts: bool = True, layout=None,
 ):
     """``_bm25_search`` over B queries stacked on axis 0 in one program
     (``engine.py:1585``). ``shared_mask``: ``masks`` is one [n_pad] mask
@@ -1683,10 +1741,7 @@ def _bm25_search_batch(
     if shared_mask != (masks.dim() == 1):
         raise ValueError(f"shared_mask={shared_mask} with masks of shape {tuple(masks.shape)}")
     bm25.DISPATCHES.add("arena_batch")
-    top_s, top_ic, matched = _bm25_arena(
+    return _bm25_arena(
         tiers, dense_tf, odense_tf, dlen, masks, all_rows, all_idfs, params, k,
-        caps, odense_base, with_counts,
+        caps, odense_base, with_counts, count_only, layout=layout,
     )
-    if count_only:
-        return top_s, top_ic, matched.sum(dim=-1)
-    return top_s, top_ic, matched

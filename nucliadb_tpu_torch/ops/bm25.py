@@ -1,10 +1,13 @@
-"""BM25 group program: the device half of the keyword leg, in PyTorch.
+"""BM25 group program: the device half of the keyword leg, in PyTorch and CUDA.
 
 Counterparts of the XLA programs of ``nucliadb_tpu/index/text_engine/engine.py``:
 ``_tier_contrib`` (:1616), ``_bm25_groups_core`` (:1756), ``_bm25_groups``
 (:1855), ``_bm25_groups_batch`` (:1866) and ``_splice_1d`` (:118). They are
-jitted XLA code in the JAX package, not Pallas kernels, so here they are
-torch ops; none has a hand-written kernel.
+jitted XLA code in the JAX package, not Pallas kernels. Here tensors on a
+CUDA device go through one hand-written kernel, ``csrc/bm25_program.cu``,
+which also cuts each of its blocks' columns to their k best, and the merge
+of those cuts; tensors on the CPU go through the plain version below,
+torch ops that the kernel is held against.
 
 The program is written batched: query ``b`` owns row ``b`` of a
 ``[B, L + 1]`` score buffer, and a single query is a batch of one. Per
@@ -18,15 +21,16 @@ query, as in the reference:
    (``with_counts``) one hit per lane into a count row;
 3. ``add_dense_columns``: the dense uint8 tf columns of stopword-grade
    terms add elementwise into each group's window ``[off, off + n_pad_g)``;
-4. ``cut``: ``matched = (counts >= required | score > 0) & mask``, the
-   masked top-k with the query's ``min_score``, and ``[k ids | k counts]``.
+4. ``epilogue`` and ``topk_cut``: ``matched = (counts >= required |
+   score > 0) & mask``, the masked top-k with the query's ``min_score``,
+   and ``[k ids | k counts]``.
 
 Two things differ from the reference in how, not in what:
 
 - **Out-of-range ids.** The reference sends padding (-1) and empty slots
   to ``L`` and drops them with ``mode="drop"``. Torch's ``index_add_``
   raises on such an id on the CPU and faults on the card, so here they go
-  to column ``L``, a sink that is sliced off.
+  to column ``L``, a sink that is sliced off. The kernel skips them.
 - **Determinism.** One scatter-add of every lane would run as atomics in
   no fixed order on the card, and a request could come back with other
   last bits from one call to the next (``SearchAfter`` compares scores
@@ -34,22 +38,41 @@ Two things differ from the reference in how, not in what:
   one term's posting row within one group, for each query, so its doc ids
   are distinct and no two lanes meet at an address but the sink. Slots add
   in the reference's concatenation order (group, tier, slot), which is
-  also the order XLA's sequential scatter sums them in on the CPU.
+  also the order XLA's sequential scatter sums them in on the CPU. The
+  kernel keeps that order (a block owns a score row and walks the slots)
+  and equals the plain version on the card bit for bit.
+
+The kernel's host half is the program table (``Layout``, built by
+``group_layout`` and ``arena_layout`` once per refresh): one record a
+posting tier or dense block, in the order the plain version adds them,
+with the tensors it reads and where its doc ids land in the score row; a
+launch adds each record's slot columns from its ``caps``. The kernel also
+cuts each block's columns to its k best (``lax.top_k``'s order), so the
+cut on the card is one small merge (``merge_cuts``). ``LAUNCHES`` counts
+the kernel's launches; ``DISPATCHES`` counts programs on either device.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
+from ..utils import kernels
 from ..utils.counts import LaunchCounter
 from .topk import NEG_INF, masked_topk
 
 K1 = 1.2
 B = 0.75
 
-# device-program dispatches by entry point ("single", "batch"): shows
-# which route served a request (the host WAND tier dispatches nothing)
+# device-program dispatches by entry point ("single", "batch", and the
+# engine's "arena", "arena_batch"), on either device: shows which route
+# served a request (the host WAND tier dispatches nothing)
 DISPATCHES = LaunchCounter()
+# launches of csrc/bm25_program.cu ("program"); chip_smoke.py reads them
+LAUNCHES = LaunchCounter()
 
 
 def splice_1d(arr: torch.Tensor, delta: torch.Tensor, start: int) -> torch.Tensor:
@@ -152,28 +175,282 @@ def add_dense_columns(scores, counts, groups, offsets, rows, idfs, avgdl, caps, 
             counts[:, off : off + np_g] += gcount
 
 
-def cut(scores, counts, mask, required, min_score, k: int):
-    """(top scores [Q, k], [k ids | k counts] [Q, 2k], matched [Q, L]).
-    ``mask`` is [L] (shared) or [Q, L]; ``required`` and ``min_score`` are
-    [Q]. Without counts the hit counts are -1 ("unknown")."""
+def epilogue(scores, counts, mask, required, min_score):
+    """(final [Q, L], matched [Q, L]): ``matched = (counts >= max(required,
+    1) | score > 0) & mask`` and ``final`` the score where matched and at
+    least ``min_score``, else ``NEG_INF``. ``mask`` is [L] (shared) or [Q,
+    L]; ``required`` and ``min_score`` are [Q]. The floor is the one
+    ``masked_topk`` would apply, folded in (the kernel's epilogue writes
+    the same ``final``)."""
     if counts is not None:
         matched = (counts >= required.clamp_min(1.0)[:, None]) & mask
     else:
         # every scored posting weighs > 0, so score > 0 <=> a term hit
         matched = (scores > 0.0) & mask
-    final = torch.where(matched, scores, NEG_INF)
-    top_s, top_i = masked_topk(final, k, min_score=min_score[:, None])
+    final = torch.where(matched & (scores >= min_score[:, None]), scores, NEG_INF)
+    return final, matched
+
+
+def topk_cut(final, counts, k: int):
+    """(top scores [Q, k], [k ids | k counts] [Q, 2k]) of ``final``."""
+    return pack_cut(*masked_topk(final, k), counts)
+
+
+def pack_cut(top_s, top_i, counts):
+    """(top scores, [k ids | k counts]): each hit's count, or -1
+    ("unknown") without counts (an empty slot, id -1, reads column 0, as
+    the reference's gather does)."""
     if counts is not None:
         top_counts = counts.gather(1, top_i.clamp_min(0)).long()
     else:
         top_counts = torch.full_like(top_i, -1)
-    return top_s, torch.cat([top_i, top_counts], dim=1), matched
+    return top_s, torch.cat([top_i, top_counts], dim=1)
 
 
-def _program(groups, offsets, masks, rows, idfs, params, k, caps, tier_counts, with_counts):
-    n_t = sum(tier_counts)
-    if len(caps) != n_t + len(groups):
-        raise ValueError(f"caps {caps} do not match {n_t} tiers and {len(groups)} groups")
+# --------------------------------------------------------------------------
+# the kernel: the program table (its host half) and the launch
+# --------------------------------------------------------------------------
+
+POSTING, DENSE_SUM, DENSE_DIRECT = 0, 1, 2  # record kinds (csrc/bm25_program.cu)
+# one record as the kernel reads it (struct Rec in the source), 48 bytes
+REC_DTYPE = np.dtype([
+    ("p0", "<i8"), ("p1", "<i8"), ("p2", "<i8"),
+    ("start", "<i4"), ("kind", "<i4"), ("lo", "<i4"), ("hi", "<i4"), ("n_rows", "<i4"), ("width", "<i4"),
+])
+MAX_RECORDS = 600  # the table the launch's parameter holds (MAX_RECS in the source)
+MAX_SMEM_BYTES = 160 * 1024  # the table and a query's rows and idfs in shared memory (MAX_SMEM)
+KMAX = 1024  # the largest k the kernel's block cut takes; a larger k is cut by ops/topk.py
+_BLOCKS_PER_SM = 2  # __launch_bounds__(THREADS, 2) in the source
+_MIN_CHUNK = 8192  # about the fewest columns a block owns when a row is cut into chunks
+
+
+class Record(NamedTuple):
+    """One record of the program table: a posting tier (``tensors`` = docs
+    i32, tfs f32, dls f32, each [T, W]; ``start`` the offset added to its
+    doc ids) or a dense block (``tensors`` = tfs u8 [R, width], dl f32
+    [width]; ``start`` the window's first score column). ``slot`` is its
+    entry of ``caps``: a launch reads its slot columns from there."""
+
+    kind: int
+    slot: int
+    tensors: tuple
+    start: int
+
+
+_POSTING_TYPES = (torch.int32, torch.float32, torch.float32)
+_DENSE_TYPES = (torch.uint8, torch.float32)
+
+
+class Layout:
+    """The static half of the kernel's program table: the records in the
+    order the plain version adds them (posting tiers first), checked for
+    what the kernel takes (contiguous tensors of the expected types on one
+    device, windows that start at 0 or later) and packed as ``REC_DTYPE``
+    rows. Built once per refresh (the engine's groups, a mesh member's
+    arena), it holds its tensors, so its pointers stay valid; a launch only
+    fills in the slot columns of its ``caps``."""
+
+    def __init__(self, records):
+        self.records = list(records)
+        self.n_post = sum(rec.kind == POSTING for rec in self.records)
+        if any(rec.kind == POSTING for rec in self.records[self.n_post:]):
+            raise ValueError("posting records must precede the dense records")
+        self.array = np.zeros(len(self.records), REC_DTYPE)
+        self.slot = np.array([rec.slot for rec in self.records], np.int64)
+        self.device = None
+        self.end = 0  # the score columns the dense windows need
+        for i, rec in enumerate(self.records):
+            types = _POSTING_TYPES if rec.kind == POSTING else _DENSE_TYPES
+            if len(rec.tensors) != len(types):
+                raise ValueError(f"record {i}: {len(rec.tensors)} tensors, kind {rec.kind} takes {len(types)}")
+            for t, dtype in zip(rec.tensors, types):
+                if t.dtype != dtype or not t.is_contiguous():
+                    raise ValueError(f"record {i}: a {t.dtype} tensor of shape {tuple(t.shape)} "
+                                     f"(the kernel takes contiguous {dtype})")
+                if self.device is None:
+                    self.device = t.device
+                elif t.device != self.device:
+                    raise ValueError(f"record {i}: tensors on {t.device} and {self.device}")
+            n_rows, width = rec.tensors[0].shape
+            if rec.kind == POSTING:
+                if any(t.shape != rec.tensors[0].shape for t in rec.tensors):
+                    raise ValueError(f"record {i}: docs, tfs and dls differ in shape")
+            else:
+                if rec.tensors[1].shape != (width,):
+                    raise ValueError(f"record {i}: dl of shape {tuple(rec.tensors[1].shape)} for a window of {width}")
+                if rec.start < 0:
+                    raise ValueError(f"record {i}: a window at {rec.start}")
+                self.end = max(self.end, rec.start + width)
+            ptrs = [t.data_ptr() for t in rec.tensors] + [0] * (3 - len(rec.tensors))
+            self.array[i] = (*ptrs, rec.start, rec.kind, 0, 0, n_rows, width)
+
+    def table(self, caps, L: int, overlay: "Layout | None" = None) -> tuple[np.ndarray, int]:
+        """(the records a launch with ``caps`` reads, their posting count):
+        this layout's records, then ``overlay``'s dense ones, each with its
+        slot columns; records no slot is scheduled for are left out."""
+        parts = [self] if overlay is None else [self, overlay]
+        starts = np.concatenate([[0], np.cumsum(caps, dtype=np.int64)])
+        tables = []
+        for lay in parts:
+            if lay.slot.size and int(lay.slot.max()) >= len(caps):
+                raise ValueError(f"caps {tuple(caps)} have no entry {int(lay.slot.max())}")
+            if lay.end > L:
+                raise ValueError(f"a dense window ends at {lay.end}, past the score space {L}")
+            t = lay.array.copy()
+            t["lo"] = starts[lay.slot]
+            t["hi"] = starts[lay.slot + 1]
+            tables.append(t[t["hi"] > t["lo"]])
+        table = np.concatenate(tables)
+        return table, int((table["kind"] == POSTING).sum())
+
+
+def group_layout(groups, offsets) -> Layout:
+    """The layout of ``_bm25_groups_core``: every group's posting tiers in
+    (group, tier) order, then every group's dense block (summed, then added
+    into its window at the group's offset)."""
+    post, dense = [], []
+    for gi, (tiers, _block, _dl) in enumerate(groups):
+        for tier in tiers:
+            post.append(Record(POSTING, len(post), tuple(tier), int(offsets[gi])))
+    for gi, (_tiers, block, dl_g) in enumerate(groups):
+        if block is not None:
+            dense.append(Record(DENSE_SUM, len(post) + gi, (block, dl_g), int(offsets[gi])))
+    return Layout(post + dense)
+
+
+def arena_layout(tiers, dense_tf, dlen) -> Layout:
+    """The layout of the single-arena ``_bm25_search``: the posting tiers
+    (global doc ids), then the base dense block, added slot by slot over
+    the whole row."""
+    out = [Record(POSTING, t, tuple(tier), 0) for t, tier in enumerate(tiers)]
+    if dense_tf is not None:
+        out.append(Record(DENSE_DIRECT, len(tiers), (dense_tf, dlen), 0))
+    return Layout(out)
+
+
+def overlay_layout(odense_tf, dlen, slot: int, odense_base) -> Layout:
+    """The overlay's dense block of ``_bm25_search``, summed and added into
+    the window at ``odense_base`` clamped to ``[0, n_pad - opad]``
+    (``lax.dynamic_slice``), with the doc lengths of that window."""
+    opad = odense_tf.shape[1]
+    base = min(max(int(odense_base), 0), dlen.shape[0] - opad)
+    return Layout([Record(DENSE_SUM, slot, (odense_tf, dlen[base : base + opad]), base)])
+
+
+def chunking(n_queries: int, L: int, sm_count: int) -> tuple[int, int]:
+    """(columns a block owns, blocks a query): a batch too small to give
+    every SM ``_BLOCKS_PER_SM`` blocks cuts each row into as many equal
+    chunks as fill the card, at most ``ceil(L / _MIN_CHUNK)``."""
+    want = max(1, (_BLOCKS_PER_SM * sm_count) // n_queries)
+    n = max(1, min(want, -(-L // _MIN_CHUNK)))
+    chunk = -(-L // n)
+    return chunk, -(-L // chunk)
+
+
+_KERNEL_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def launch_program(layout, caps, masks, rows, idfs, params, with_counts: bool, count_only: bool, k: int = 0,
+                   overlay=None):
+    """One launch of ``csrc/bm25_program.cu`` for the program ``layout``
+    (and ``overlay``) describe with ``caps``, on the tensors' card and its
+    current stream. Returns (final [Q, L] f32, counts [Q, L] f32 or None,
+    matched [Q, L] bool or, under ``count_only``, [Q] int64 match counts,
+    the blocks' cuts ([Q, n_chunks, k] scores, [Q, n_chunks, k] int64
+    columns) or None with ``k`` = 0)."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"the BM25 kernel runs on a CUDA device, not {dev}")
+    n_q, n_slots = rows.shape
+    L = masks.shape[-1]
+    for name, t, dtype, shape in (
+        ("rows", rows, torch.int32, (n_q, n_slots)), ("idfs", idfs, torch.float32, (n_q, n_slots)),
+        ("params", params, torch.float32, (n_q, 3)),
+        ("masks", masks, torch.bool, (L,) if masks.dim() == 1 else (n_q, L)),
+    ):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}; "
+                             f"the kernel takes contiguous {dtype} {shape} on {dev}")
+    if n_q == 0 or L == 0 or n_slots == 0:
+        raise ValueError(f"empty program: Q={n_q}, L={L}, S={n_slots}")
+    if sum(caps) != n_slots:
+        raise ValueError(f"caps {tuple(caps)} for {n_slots} slot columns")
+    if not 0 <= k <= KMAX:
+        raise ValueError(f"k={k}: the kernel's block cut takes 1 to {KMAX} (0: no cut)")
+    for lay in (layout, overlay):
+        if lay is not None and lay.records and lay.device != dev:
+            raise ValueError(f"a table tensor is on {lay.device}, not {dev}")
+    table, n_post = layout.table(caps, L, overlay)
+    if len(table) > MAX_RECORDS or table.nbytes + 8 * n_slots > MAX_SMEM_BYTES:
+        raise ValueError(f"{len(table)} table records and {n_slots} slots exceed the kernel's table")
+    chunk, n_chunks = chunking(n_q, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+    final = torch.empty((n_q, L), dtype=torch.float32, device=dev)
+    counts = torch.empty((n_q, L), dtype=torch.float32, device=dev) if with_counts else None
+    matched = None if count_only else torch.empty((n_q, L), dtype=torch.bool, device=dev)
+    part = torch.empty((n_q, n_chunks), dtype=torch.int64, device=dev) if count_only else None
+    cut = (torch.empty((n_q, n_chunks, k), dtype=torch.float32, device=dev),
+           torch.empty((n_q, n_chunks, k), dtype=torch.int64, device=dev)) if k else None
+    fn = kernels.load("bm25_program").bm25_program
+    fn.argtypes = _KERNEL_ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        err = fn(
+            table.ctypes.data, len(table), n_post,
+            rows.data_ptr(), idfs.data_ptr(), n_slots, params.data_ptr(),
+            masks.data_ptr(), 0 if masks.dim() == 1 else L,
+            final.data_ptr(), ptr(counts), ptr(matched), ptr(part),
+            *(ptr(t) for t in (cut or (None, None))), k,
+            L, chunk, n_q, stream.cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bm25_program launch failed: CUDA error {err}")
+    LAUNCHES.add("program")
+    if count_only:
+        matched = part[:, 0] if n_chunks == 1 else part.sum(dim=1)
+    return final, counts, matched, cut
+
+
+def merge_cuts(cut_s, cut_i, k: int):
+    """A row's cut ([Q, k] scores, [Q, k] ids) from its blocks' cuts
+    [Q, n_chunks, k]: each block's list is in ``lax.top_k``'s order and
+    the blocks are in column order, so a stable sort by score keeps the
+    lower column first among equal scores."""
+    if cut_s.shape[1] == 1:
+        return cut_s[:, 0], cut_i[:, 0]
+    n_q = cut_s.shape[0]
+    top_s, order = torch.sort(cut_s.reshape(n_q, -1), dim=1, descending=True, stable=True)
+    return top_s[:, :k], cut_i.reshape(n_q, -1).gather(1, order[:, :k])
+
+
+def run_kernel(layout, caps, masks, rows, idfs, params, k: int, with_counts: bool, count_only: bool,
+               overlay=None):
+    """The program on the card: the kernel with its block cut, then the
+    merge (``ops/topk.py`` cuts a ``k`` past ``KMAX``). Returns (top
+    scores [Q, k], [k ids | k counts] [Q, 2k], matched [Q, L] or its [Q]
+    counts)."""
+    block_cut = 1 <= k <= KMAX
+    final, counts, matched, cut = launch_program(
+        layout, caps, masks, rows, idfs, params, with_counts, count_only, k if block_cut else 0, overlay,
+    )
+    if cut is None:
+        top_s, top_ic = topk_cut(final, counts, k)
+    else:
+        top_s, top_ic = pack_cut(*merge_cuts(*cut, k), counts)
+    return top_s, top_ic, matched
+
+
+def plain_final(groups, offsets, masks, rows, idfs, params, caps, tier_counts, with_counts):
+    """The plain version of what the kernel writes, torch ops on any device:
+    (final [Q, L], counts [Q, L] or None, matched [Q, L])."""
     avgdl, required, min_score = params[:, 0], params[:, 1], params[:, 2]
     L = masks.shape[-1]
     parts = gather_weights(groups, offsets, rows, idfs, avgdl, caps, tier_counts, L)
@@ -181,24 +458,52 @@ def _program(groups, offsets, masks, rows, idfs, params, k, caps, tier_counts, w
     scores = scores[:, :L]
     counts = counts[:, :L] if counts is not None else None
     add_dense_columns(scores, counts, groups, offsets, rows, idfs, avgdl, caps, tier_counts)
-    return cut(scores, counts, masks, required, min_score, k)
+    final, matched = epilogue(scores, counts, masks, required, min_score)
+    return final, counts, matched
 
 
-def bm25_groups(groups, offsets, mask, all_rows, all_idfs, params, k, caps, tier_counts, with_counts=True):
+def plain_program(groups, offsets, masks, rows, idfs, params, k, caps, tier_counts, with_counts, count_only=False):
+    """The plain version of the group program: what the CPU runs, and what
+    the kernel is held against on the card."""
+    final, counts, matched = plain_final(groups, offsets, masks, rows, idfs, params, caps, tier_counts, with_counts)
+    top_s, top_ic = topk_cut(final, counts, k)
+    return top_s, top_ic, matched.sum(dim=-1) if count_only else matched
+
+
+def _program(groups, offsets, masks, rows, idfs, params, k, caps, tier_counts, with_counts, count_only=False,
+             layout=None):
+    """The kernel for tensors on a CUDA device (over ``layout``, the
+    caller's ``group_layout`` of ``groups``, or one built here), the plain
+    version for tensors on the CPU; there is no fallback between the two."""
+    n_t = sum(tier_counts)
+    if len(caps) != n_t + len(groups):
+        raise ValueError(f"caps {caps} do not match {n_t} tiers and {len(groups)} groups")
+    if rows.device.type == "cuda":
+        if layout is None:
+            layout = group_layout(groups, offsets)
+        return run_kernel(layout, caps, masks, rows, idfs, params, k, with_counts, count_only)
+    if rows.device.type != "cpu":
+        raise ValueError(f"unsupported device {rows.device}")
+    return plain_program(groups, offsets, masks, rows, idfs, params, k, caps, tier_counts, with_counts, count_only)
+
+
+def bm25_groups(groups, offsets, mask, all_rows, all_idfs, params, k, caps, tier_counts, with_counts=True,
+                *, layout=None):
     """One query: ``mask`` [L] bool, ``all_rows``/``all_idfs`` [sum(caps)],
     ``params`` [3] (avgdl, required, min_score). Returns (top scores [k],
-    [k ids | k counts] [2k], matched [L])."""
+    [k ids | k counts] [2k], matched [L]). ``layout``: the caller's
+    ``group_layout(groups, offsets)``, kept across calls."""
     DISPATCHES.add("single")
     top_s, top_ic, matched = _program(
         groups, offsets, mask, all_rows[None], all_idfs[None], params[None],
-        k, caps, tier_counts, with_counts,
+        k, caps, tier_counts, with_counts, layout=layout,
     )
     return top_s[0], top_ic[0], matched[0]
 
 
 def bm25_groups_batch(
     groups, offsets, masks, all_rows, all_idfs, params, k, caps, tier_counts,
-    *, shared_mask: bool = False, count_only: bool = False, with_counts: bool = True,
+    *, shared_mask: bool = False, count_only: bool = False, with_counts: bool = True, layout=None,
 ):
     """B queries in one program. ``masks`` is one shared [L] mask
     (``shared_mask``) or [B, L]; ``count_only`` returns [B] match counts
@@ -207,9 +512,7 @@ def bm25_groups_batch(
     if shared_mask != (masks.dim() == 1):
         raise ValueError(f"shared_mask={shared_mask} with masks of shape {tuple(masks.shape)}")
     DISPATCHES.add("batch")
-    top_s, top_ic, matched = _program(
-        groups, offsets, masks, all_rows, all_idfs, params, k, caps, tier_counts, with_counts,
+    return _program(
+        groups, offsets, masks, all_rows, all_idfs, params, k, caps, tier_counts, with_counts, count_only,
+        layout=layout,
     )
-    if count_only:
-        return top_s, top_ic, matched.sum(dim=-1)
-    return top_s, top_ic, matched

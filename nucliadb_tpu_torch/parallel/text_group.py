@@ -95,6 +95,11 @@ class MeshTextGroup:
                     for tiers, dense, dl in e._group_tensors()
                 ))
             self.offsets.append(e._offsets())
+        # each member's kernel layout, once (the group is one refresh)
+        self.layouts = [
+            bm25.group_layout(g, o) if dev.type == "cuda" else None
+            for g, o, dev in zip(self.groups, self.offsets, self.devices)
+        ]
         for dev in set(self.devices):
             stream_wait(dev)
 
@@ -144,6 +149,7 @@ class MeshTextGroup:
                     self.groups[i], self.offsets[i], torch.from_numpy(mask).to(dev),
                     torch.from_numpy(rows).to(dev), torch.from_numpy(idfs).to(dev),
                     torch.from_numpy(params).to(dev), k, caps, self.tier_counts, with_counts,
+                    layout=self.layouts[i],
                 )
                 outs.append((top_s, top_ic, matched.sum().to(torch.int32)))
         first = self.mesh.first

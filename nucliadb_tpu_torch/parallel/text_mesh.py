@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..index.text_engine.engine import DeviceTextEngine, TextQuery, _bm25_search
+from ..ops import bm25
 from ..ops.topk import sharded_topk_allgather
 from ..utils.platform import device_fetch, stream_wait
 from .mesh import Mesh, on_member
@@ -58,6 +59,11 @@ class MeshShardedTextEngine:
                     e.dense_tf.to(dev),
                     e.dlen.to(dev),
                 ))
+        # each member's kernel layout, once (the engines are one refresh)
+        self.layouts = [
+            bm25.arena_layout(*arena) if dev.type == "cuda" else None
+            for arena, dev in zip(self.arenas, self.devices)
+        ]
         self.offsets = np.cumsum([0] + [e.n_docs for e in engines])  # [S + 1]
         for dev in set(self.devices):
             stream_wait(dev)
@@ -84,7 +90,8 @@ class MeshShardedTextEngine:
         dev = self.devices[i]
         r, w, p, m = (torch.from_numpy(x).to(dev) for x in inputs)
         tiers, dense, dlen = self.arenas[i]
-        top_s, top_ic, _ = _bm25_search(tiers, dense, None, dlen, m, r, w, p, k, self.caps, 0)
+        top_s, top_ic, _ = _bm25_search(tiers, dense, None, dlen, m, r, w, p, k, self.caps, 0,
+                                        layout=self.layouts[i])
         top_i = top_ic[:k]  # ids lead the packed [ids | term counts] array
         return top_s[None], torch.where(top_i >= 0, top_i + offset, -1)[None]
 

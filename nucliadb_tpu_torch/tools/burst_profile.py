@@ -21,6 +21,10 @@ the ``Processor``), opens it on both keyword routes and, for each route:
   paragraph and vector legs run inline on the request thread instead of
   the paragraph leg on the index pool (for /find, only as served); each
   pass also counts the payload parses of hydration;
+- counts the launches a request (kernels, copies and fills on the card,
+  ``torch.profiler`` over the 64 requests one after another) and how many
+  of them are the BM25 program's (its calls in those requests captured and
+  replayed alone: the kernel and the cut);
 - profiles one burst with ``torch.profiler`` (CPU and CUDA activity): the
   device time of its kernels and copies, and the host operators by self
   time;
@@ -139,6 +143,49 @@ def _sampled(fn, period_s: float = 0.001) -> tuple[float, list]:
     done.set()
     sampler.join(timeout=10)
     return ms, counts.most_common(20)
+
+
+def _device_events(fn) -> int:
+    """Kernels, copies and fills ``fn()`` put on the card (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def _launches(search, reqs) -> dict:
+    """Launches a request and the BM25 program's share of them: the
+    program's calls (``ops.bm25._program``, which every group dispatch
+    reaches) are captured during the requests and replayed alone. Without a
+    card only the dispatches are counted."""
+    from ..ops import bm25
+
+    calls, real = [], bm25._program
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    bm25._program = capture
+    try:
+        if torch.cuda.is_available():
+            total = _device_events(lambda: [search(r) for r in reqs])
+        else:
+            total = None
+            for r in reqs:
+                search(r)
+    finally:
+        bm25._program = real
+    program = _device_events(lambda: [real(*a, **kw) for a, kw in calls]) if torch.cuda.is_available() else None
+    n = len(reqs)
+    return {
+        "launches_per_request": None if total is None else total / n,
+        "bm25_program_launches_per_request": None if program is None else program / n,
+        "bm25_dispatches_per_request": len(calls) / n,
+    }
 
 
 def _profile(fn, trace: str | None) -> dict:
@@ -293,6 +340,7 @@ def main(argv=None) -> None:
                         "payload_parses": [[n, p] for n, _, p in runs],
                     }
                 print(json.dumps({"route": route, "times": times}), flush=True)
+                print(json.dumps({"route": route, "launches": _launches(search, reqs)}), flush=True)
                 trace = f"{args.trace}.{route}.json" if args.trace else None
                 print(json.dumps({"route": route, "profiled_burst": _profile(lambda: _run(search, reqs, THREADS), trace)}),
                       flush=True)

@@ -6,32 +6,56 @@ no compile cache; what a first request would pay is the ``nvcc`` build of
 the hand kernels and the first launch of each program. So the warm-up
 builds and loads every source under ``csrc/`` (on a CUDA device), runs the
 top-2 int8 slot scan once at its smallest eligible shape and runs the BM25
-group program once on a one-group, all-padding input, on the caller's
-device. On the CPU the same calls run the plain versions and nothing is
-built. Nothing is caught: a kernel that fails to build raises.
+group program (``csrc/bm25_program.cu``) once on a one-group, all-padding
+input, on the caller's device. On the CPU the same calls run the plain
+versions and nothing is built. Nothing is caught: a kernel that fails to
+build raises.
+
+A device is warmed once a process: a later call on a device already done
+returns at once, as the JAX package's second call finds its jit cache.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 
 import torch
 
 logger = logging.getLogger(__name__)
 
+_done: set = set()  # the devices warmed in this process
+_lock = threading.Lock()
+
 
 def warmup_kernels(device: "str | torch.device" = "cuda") -> float:
-    """Build the kernels and run the hot programs once on ``device``.
-    Returns the seconds taken."""
+    """Build the kernels and run the hot programs once on ``device`` (once
+    a process: a device already warmed returns at once). Returns the
+    seconds taken."""
+    from ..utils.platform import resolve_device
+
+    t0 = time.monotonic()
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _lock:
+        if dev in _done:
+            return time.monotonic() - t0
+        _warm(dev)
+        _done.add(dev)
+    dt = time.monotonic() - t0
+    logger.info("kernel warmup done in %.1fs", dt)
+    return dt
+
+
+def _warm(dev: torch.device) -> None:
     from ..index.text_engine.engine import DENSE_QUERY_CAP, TIER_QUERY_CAP, TIER_WIDTHS
     from ..ops import bm25, slot_scan
     from ..utils import kernels
     from ..utils.buckets import bucket
-    from ..utils.platform import device_fetch, resolve_device, thread_stream
+    from ..utils.platform import device_fetch, thread_stream
 
-    t0 = time.monotonic()
-    dev = resolve_device(device)
     if dev.type == "cuda":
         for name in sorted(p.stem for p in kernels.CSRC.glob("*.cu")):
             kernels.load(name)
@@ -69,6 +93,3 @@ def warmup_kernels(device: "str | torch.device" = "cuda") -> float:
         rows, idfs, params, 10, caps, (len(TIER_WIDTHS),), True,
     )
     device_fetch(*scan, *out)
-    dt = time.monotonic() - t0
-    logger.info("kernel warmup done in %.1fs", dt)
-    return dt

@@ -8,6 +8,8 @@ imports jax) is left out:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -290,6 +292,156 @@ def test_cuda_keyword_engine_matches_cpu(tmp_path, monkeypatch, need_matched):
             assert m1.sum() == m2.sum() == mc.sum()
     single = gpu.search(queries[5])
     assert [h.doc_id for h in single[0]] == [h.doc_id for h in cpu.search(queries[5])[0]]
+
+
+
+# ---------------------------------------------------------------------------
+# the BM25 program's hand kernel (csrc/bm25_program.cu)
+# ---------------------------------------------------------------------------
+
+
+def _same_program_outputs(got, want):
+    """Bit for bit: scores as int32 bits, ids and counts, matched bitmaps
+    or counts."""
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        else:
+            assert torch.equal(g, w)
+
+
+def _bm25_cases():
+    from torch_test_helpers import BM25_ARENA_CASES, BM25_GROUP_CASES
+
+    return [("group", n) for n in sorted(BM25_GROUP_CASES)] + [("arena", n) for n in sorted(BM25_ARENA_CASES)]
+
+
+@pytest.mark.parametrize("whole_rows", [False, True])
+@pytest.mark.parametrize("kind,name", _bm25_cases())
+def test_cuda_bm25_kernel_equals_plain_version(monkeypatch, kind, name, whole_rows):
+    """``bm25_groups_batch`` and ``_bm25_search_batch`` on the card launch
+    the kernel once and equal the plain version on the card bit for bit
+    (with ``whole_rows``, a cut at k = L: every score of every row, by the
+    kernel's block cut up to ``bm25.KMAX`` and by ``ops/topk.py`` past
+    it), with ``torch.cuda.synchronize`` made to raise."""
+    _need_card()
+    from nucliadb_tpu_torch.ops import bm25
+    from torch_test_helpers import bm25_arena_case, bm25_group_case, run_bm25_case
+
+    case = bm25_group_case(name) if kind == "group" else bm25_arena_case(name)
+    if whole_rows:
+        case["k"] = case["masks"].shape[-1]
+    _refuse_synchronize(monkeypatch)
+    before = bm25.LAUNCHES["program"]
+    got = run_bm25_case(case, "cuda")
+    assert bm25.LAUNCHES["program"] == before + 1
+    want = run_bm25_case(case, "cuda", kernel=False)
+    assert bm25.LAUNCHES["program"] == before + 1
+    _same_program_outputs(got, want)
+    _same_program_outputs(run_bm25_case(case, "cuda"), got)  # deterministic
+
+
+@pytest.mark.parametrize("kind,name", _bm25_cases())
+def test_cuda_bm25_kernel_rows_equal_plain_rows(kind, name):
+    """One ``bm25.launch_program`` (no cut) writes the plain version's
+    final rows, count rows and bitmaps or match counts, bit for bit: the
+    group program against ``bm25.plain_final``, the single arena (base
+    block slot by slot, the overlay at its clamped base) against
+    ``engine._bm25_arena_final_plain``."""
+    _need_card()
+    from torch_test_helpers import bm25_arena_case, bm25_case_rows, bm25_group_case
+
+    case = bm25_group_case(name) if kind == "group" else bm25_arena_case(name)
+    got = bm25_case_rows(case, "cuda")
+    want = bm25_case_rows(case, "cuda", kernel=False)
+    assert (got[1] is None) == (want[1] is None)
+    _same_program_outputs([t for t in got if t is not None], [t for t in want if t is not None])
+
+
+def test_cuda_bm25_kernel_from_threads(monkeypatch):
+    """Programs of other table sizes launched from 8 threads at once (a
+    node request's paragraph and document legs, the shards of
+    ``search_multi``): each answer equals its solo answer bit for bit."""
+    _need_card()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nucliadb_tpu_torch.utils.platform import thread_stream
+    from torch_test_helpers import bm25_arena_case, bm25_group_case, run_bm25_case
+
+    cases = [bm25_group_case(n) for n in ("hot_doc", "and_required", "dense_overlap")] + [
+        bm25_arena_case(n) for n in ("hot_doc_and", "all_padding_or")]
+    solo = [run_bm25_case(c, "cuda") for c in cases]
+    _refuse_synchronize(monkeypatch)
+
+    def run(i):
+        thread_stream("cuda")
+        return i % len(cases), [t.cpu() for t in run_bm25_case(cases[i % len(cases)], "cuda")]  # on its stream
+
+    with ThreadPoolExecutor(8) as pool:
+        for i, got in pool.map(run, range(20 * len(cases))):
+            _same_program_outputs(got, solo[i])
+
+
+def test_cuda_bm25_kernel_without_a_build_raises(monkeypatch):
+    """No fallback: with ``kernels.load`` made to raise, a keyword search on
+    the card raises instead of running the plain version."""
+    _need_card()
+    from nucliadb_tpu_torch.ops import bm25
+    from nucliadb_tpu_torch.utils import kernels
+    from torch_test_helpers import bm25_arena_case, bm25_group_case, run_bm25_case
+
+    def refuse(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(kernels, "load", refuse)
+    for case in (bm25_group_case("hot_doc"), bm25_arena_case("hot_doc_and")):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            run_bm25_case(case, "cuda")
+    assert run_bm25_case(bm25_group_case("hot_doc"), "cpu")[0].shape[0] == 6  # the CPU takes the plain version
+
+
+def test_cuda_bm25_kernel_on_a_two_member_mesh(tmp_path, monkeypatch):
+    """The mesh's keyword programs on two members of the card: the text
+    group (``bm25_groups`` a member) and the sharded engine
+    (``_bm25_search`` a member) launch the kernel once a member and equal
+    the plain version bit for bit, with ``torch.cuda.synchronize`` made to
+    raise."""
+    _need_card()
+    from unittest import mock
+
+    from nucliadb_tpu_torch.index.text_engine import engine as teng
+    from nucliadb_tpu_torch.index.text_engine.builder import open_text_segment
+    from nucliadb_tpu_torch.ops import bm25
+    from nucliadb_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from nucliadb_tpu_torch.parallel.text_group import MeshTextGroup
+    from nucliadb_tpu_torch.parallel.text_mesh import MeshShardedTextEngine
+
+    metas, vocab = _keyword_segments(tmp_path)
+    segs = [(open_text_segment(m.path), q) for m, q in metas]
+    rng = np.random.default_rng(31)
+    queries = [
+        teng.TextQuery(text=f"{vocab[int(rng.integers(0, 40))]} {vocab[int(rng.integers(0, 40))]}", top_k=15,
+                       all_terms=i % 2 == 0)
+        for i in range(6)
+    ]
+    with mock.patch.object(teng, "TIER_WIDTHS", (8, 32, 128)), mock.patch.object(teng, "TIER_QUERY_CAP", (4, 4, 2)):
+        engines = [teng.DeviceTextEngine(segs[i : i + 1], [], device="cuda") for i in range(2)]
+        assert all(len(e.groups) == 1 and e.groups[0].dense_dev is not None for e in engines)
+        group = MeshTextGroup([SimpleNamespace(engine=e) for e in engines], Mesh([torch.device("cuda", 0)] * 2, ("shard",)))
+        sharded = MeshShardedTextEngine(engines, make_mesh(2, device="cuda"))
+        _refuse_synchronize(monkeypatch)
+        before = bm25.LAUNCHES["program"]
+        got = [(group.search([q, q], 15), sharded.search(q)) for q in queries]
+        assert bm25.LAUNCHES["program"] == before + 4 * len(queries)
+        monkeypatch.setattr(bm25, "_program", lambda *a, layout=None: bm25.plain_program(*a))
+        monkeypatch.setattr(teng, "_bm25_arena", lambda *a, layout=None: teng._bm25_arena_plain(*a))
+        want = [(group.search([q, q], 15), sharded.search(q)) for q in queries]
+    assert bm25.LAUNCHES["program"] == before + 4 * len(queries)
+    for (g_group, g_sharded), (w_group, w_sharded) in zip(got, want):
+        for g, w in zip(g_group + g_sharded, w_group + w_sharded):
+            assert g.dtype == w.dtype and np.array_equal(g.view(np.uint8), w.view(np.uint8))
 
 
 _WORDS = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf", "hotel"]

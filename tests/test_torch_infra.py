@@ -319,15 +319,20 @@ def test_warmup_kernels():
     """The port's warm-up takes a device, not the JAX package's dims: it
     builds and loads the hand kernels on a card (``kernels._loaded`` keeps
     them, so a second call builds nothing) and runs the hot programs once.
-    On the CPU it loads no kernel and runs the plain versions."""
+    On the CPU it loads no kernel and runs the plain versions. A device is
+    warmed once a process: the second call returns at once and dispatches
+    no BM25 program, as the JAX package's second call finds its jit cache."""
+    from nucliadb_tpu_torch.ops import bm25
     from nucliadb_tpu_torch.utils import kernels
     from nucliadb_tpu_torch.utils.warmup import warmup_kernels
 
     loaded = dict(kernels._loaded)
     assert warmup_kernels("cpu") >= 0.0
+    dispatches = dict(bm25.DISPATCHES)
     # second call is cached (near-instant)
     assert warmup_kernels("cpu") < 1.0
     assert kernels._loaded == loaded
+    assert dict(bm25.DISPATCHES) == dispatches
 
 
 def test_keyed_lock_exclusion_and_pruning():

@@ -51,6 +51,6 @@ def test_phase_paged_rehearsal(tmp_path, monkeypatch, capsys):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(slot_scan, "int8_scan_slots_resident2", counted)
-    launches = chip_smoke.phase_paged(torch, slot_scan, binary_scan, corpus, device="cpu")
+    launches, bm25_launches = chip_smoke.phase_paged(torch, slot_scan, binary_scan, corpus, device="cpu")
     text = capsys.readouterr().out
-    assert launches >= 4 and "paged host_rerank:" in text and "paged stream:" in text and "6 chunks of 4096" in text
+    assert launches >= 4 and bm25_launches == 0 and "paged host_rerank:" in text and "paged stream:" in text and "6 chunks of 4096" in text

@@ -250,10 +250,12 @@ def test_cuda_app_without_a_card_raises_before_it_opens_anything(tmp_path, monke
     assert not data_dir.exists() and not bound
 
 
-def test_warmup_runs_on_the_cpu():
+def test_warmup_runs_on_the_cpu(monkeypatch):
     from nucliadb_tpu_torch.ops import bm25
+    from nucliadb_tpu_torch.utils import warmup
     from nucliadb_tpu_torch.utils.warmup import warmup_kernels
 
+    monkeypatch.setattr(warmup, "_done", set())  # as in a fresh process: an app booted earlier warmed the CPU
     before = bm25.DISPATCHES.get("single", 0)
     seconds = warmup_kernels("cpu")
     assert seconds > 0 and bm25.DISPATCHES.get("single", 0) == before + 1
@@ -278,7 +280,10 @@ def test_warmup_failure_is_reported_not_swallowed(tmp_path, monkeypatch):
     assert app.warmup_seconds is None
 
 
-def test_warmup_thread_records_its_seconds(tmp_path):
+def test_warmup_thread_records_its_seconds(tmp_path, monkeypatch):
+    from nucliadb_tpu_torch.utils import warmup
+
+    monkeypatch.setattr(warmup, "_done", set())  # as in a fresh process
     app = standalone_app("nucliadb_tpu_torch")(data_dir=str(tmp_path), host="127.0.0.1", port=0)
     try:
         app.start_background(3600.0)

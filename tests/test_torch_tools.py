@@ -76,4 +76,7 @@ def test_burst_profile_runs_on_the_cpu(monkeypatch, capsys, path):
     assert len(parses) == 4 * len(settings) * 2 and all(p >= 0 for p in parses)
     assert path == "find" or not any(parses)
     assert sum("profiled_burst" in x for x in lines) == 2 and sum("frames" in x for x in lines) == 2
+    launches = {x["route"]: x["launches"] for x in lines if "launches" in x}
+    assert launches["device"]["bm25_dispatches_per_request"] >= 1  # the paragraph leg on the device program
+    assert launches["device"]["launches_per_request"] is None  # no card: not measured
     assert __import__("sys").getswitchinterval() == 0.005

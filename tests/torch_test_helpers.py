@@ -367,3 +367,212 @@ def rehearse_phase_ops(chip_smoke, tmp_path, monkeypatch, device, **cfg):
     migrator_cli.main()
     ops_cfg = dict(chip_smoke.OPS_FULL, requests=8, **cfg)
     return chip_smoke.phase_ops(torch, str(tmp_path), find, ops_cfg, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the BM25 program: inputs at the cases the kernel must get right
+# ---------------------------------------------------------------------------
+
+BM25_GROUP_CASES = {
+    # a doc (local 3 of every group) in every row of every tier, every slot scheduled
+    "hot_doc": dict(hot=True, n_q=6),
+    # AND semantics: required 2 and 3, per-query masks
+    "and_required": dict(with_counts=True, required=(1, 2, 3), n_q=6),
+    # whole queries and tier rows of padding only
+    "all_padding": dict(padding=True, with_counts=True, n_q=5),
+    # a dense window reaching over the next group's docs (tf 0 there)
+    "dense_overlap": dict(overlap=9, n_q=5),
+    # one mask for the batch, the matched counts only
+    "shared_count_only": dict(shared_mask=True, count_only=True, with_counts=True, n_q=7),
+    # floors on the scores
+    "min_score": dict(min_score=(-3.0e38, 1.5, 4.0), n_q=6),
+    # equal tf, length and idf everywhere: a score is its hit count, and
+    # thousands of columns tie at the k-th score, over rows the kernel cuts
+    # into blocks (a query's row, 21,000 columns, in three)
+    "ties_wide": dict(ties=True, sizes=(9000, 7000, 5000), n_q=2),
+}
+
+
+def bm25_group_case(name: str, seed: int = 0):
+    """Inputs of the group program (numpy) for case ``name`` of
+    ``BM25_GROUP_CASES``: three groups of 40, 24 and 30 docs, tiers of
+    widths 4, 8 and 16, a dense block a group (8 columns past the group's
+    docs, tf 0 there, or ``overlap`` more), and Q queries."""
+    opts = BM25_GROUP_CASES[name]
+    rng = np.random.default_rng(seed + 100 * list(BM25_GROUP_CASES).index(name))
+    sizes, widths, rows_t = opts.get("sizes", (40, 24, 30)), (4, 8, 16), (5, 3, 2)
+    ties = opts.get("ties", False)
+    extra = 8 + opts.get("overlap", 0)
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    L = int(sum(sizes)) + extra
+    groups = []
+    for n_g in sizes:
+        dl_g = np.full(n_g + extra, 10.0, np.float32) if ties else rng.integers(1, 40, n_g + extra).astype(np.float32)
+        tiers = []
+        for w, t in zip(widths, rows_t):
+            docs = np.full((t, w), -1, np.int32)
+            for r in range(t):
+                if opts.get("padding") and r == t - 1:
+                    continue  # a row of padding only
+                n = int(rng.integers(1, w + 1))
+                pick = rng.choice(n_g, n, replace=False)
+                if opts.get("hot"):
+                    pick = np.unique(np.concatenate([pick[: n - 1], [3]]))
+                docs[r, : len(pick)] = np.sort(pick)
+            tfs = np.where(docs >= 0, 1 if ties else rng.integers(1, 6, docs.shape), 0).astype(np.float32)
+            dls = np.where(docs >= 0, dl_g[np.maximum(docs, 0)], 1.0).astype(np.float32)
+            tiers.append((docs, tfs, dls))
+        dense = (rng.random((3, n_g + extra)) < 0.5 if ties else rng.integers(0, 4, (3, n_g + extra))).astype(np.uint8)
+        dense[:, n_g:] = 0  # columns past the group's docs
+        groups.append((tiers, dense, dl_g))
+    caps = (3, 2, 2) * len(sizes) + (2,) * len(sizes)
+    tier_counts = (len(widths),) * len(sizes)
+    n_q = opts["n_q"]
+    rows = np.zeros((n_q, sum(caps)), np.int32)
+    col = 0
+    for c, hi in zip(caps, [t for _ in sizes for t in rows_t] + [3] * len(sizes)):
+        lo = 0 if opts.get("hot") else -1
+        rows[:, col : col + c] = rng.integers(lo, hi, (n_q, c))
+        col += c
+    if opts.get("padding"):
+        rows[0] = -1
+    idfs = np.ones(rows.shape, np.float32) if ties else rng.uniform(0.2, 2.5, rows.shape).astype(np.float32)
+    required = opts.get("required", (1,))
+    floors = opts.get("min_score", (-3.0e38,))
+    params = np.array(
+        [[float(rng.uniform(8, 16)), required[q % len(required)], floors[q % len(floors)]] for q in range(n_q)],
+        np.float32,
+    )
+    shared = opts.get("shared_mask", False)
+    masks = rng.random(L if shared else (n_q, L)) > 0.1
+    return dict(
+        groups=groups, offsets=offsets, masks=masks, rows=rows, idfs=idfs, params=params, k=12,
+        caps=caps, tier_counts=tier_counts, shared_mask=shared, count_only=opts.get("count_only", False),
+        with_counts=opts.get("with_counts", False),
+    )
+
+
+BM25_ARENA_CASES = {
+    "hot_doc_and": dict(hot=True, with_counts=True, required=(1, 2, 3)),
+    "all_padding_or": dict(padding=True, min_score=(-3.0e38, 1.0)),
+    "shared_count_only": dict(hot=True, with_counts=True, shared_mask=True, count_only=True),
+}
+
+
+def bm25_arena_case(name: str, seed: int = 0):
+    """Inputs of the single-arena program (numpy) for case ``name`` of
+    ``BM25_ARENA_CASES``: n_pad 96, three posting tiers of global doc ids,
+    a base dense block and an overlay block of 16 columns at base 88
+    (clamped to 80)."""
+    opts = BM25_ARENA_CASES[name]
+    rng = np.random.default_rng(seed + 200 + 100 * list(BM25_ARENA_CASES).index(name))
+    n_pad, opad = 96, 16
+    dlen = rng.integers(1, 40, n_pad).astype(np.float32)
+    tiers = []
+    for w, t in ((4, 4), (8, 3), (16, 2)):
+        docs = np.full((t, w), -1, np.int32)
+        for r in range(t - (1 if opts.get("padding") else 0)):
+            n = int(rng.integers(1, w + 1))
+            pick = rng.choice(n_pad - 8, n, replace=False)
+            if opts.get("hot"):
+                pick = np.unique(np.concatenate([pick[: n - 1], [7]]))
+            docs[r, : len(pick)] = np.sort(pick)
+        tfs = np.where(docs >= 0, rng.integers(1, 6, docs.shape), 0).astype(np.float32)
+        dls = np.where(docs >= 0, dlen[np.maximum(docs, 0)], 1.0).astype(np.float32)
+        tiers.append((docs, tfs, dls))
+    dense = rng.integers(0, 3, (3, n_pad)).astype(np.uint8)
+    odense = rng.integers(0, 4, (2, opad)).astype(np.uint8)
+    caps = (3, 2, 2, 3, 2)
+    n_q = 5
+    lo = 0 if opts.get("hot") else -1
+    rows = np.concatenate([
+        rng.integers(lo, 4, (n_q, 3)), rng.integers(lo, 3, (n_q, 2)), rng.integers(lo, 2, (n_q, 2)),
+        rng.integers(-1, 3, (n_q, 3)), rng.integers(-1, 2, (n_q, 2)),
+    ], axis=1).astype(np.int32)
+    if opts.get("padding"):
+        rows[0] = -1
+    idfs = rng.uniform(0.2, 2.5, rows.shape).astype(np.float32)
+    required = opts.get("required", (1,))
+    floors = opts.get("min_score", (-3.0e38,))
+    params = np.array([[12.0, required[q % len(required)], floors[q % len(floors)]] for q in range(n_q)], np.float32)
+    shared = opts.get("shared_mask", False)
+    masks = rng.random(n_pad if shared else (n_q, n_pad)) > 0.1
+    return dict(
+        tiers=tiers, dense=dense, odense=odense, dlen=dlen, masks=masks, rows=rows, idfs=idfs, params=params,
+        k=10, caps=caps, odense_base=88, shared_mask=shared, count_only=opts.get("count_only", False),
+        with_counts=opts.get("with_counts", False),
+    )
+
+
+def bm25_torch_inputs(case: dict, device) -> dict:
+    """``case`` with every array a tensor on ``device`` (offsets stay host
+    ints, as the engine passes them)."""
+    import torch
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = dict(case)
+    if "groups" in case:
+        out["groups"] = tuple(
+            (tuple(tuple(t(a) for a in tier) for tier in tiers), t(dense), t(dl)) for tiers, dense, dl in case["groups"]
+        )
+        out["offsets"] = tuple(int(o) for o in case["offsets"])
+    else:
+        out["tiers"] = tuple(tuple(t(a) for a in tier) for tier in case["tiers"])
+        for key in ("dense", "odense", "dlen"):
+            out[key] = t(case[key])
+    for key in ("masks", "rows", "idfs", "params"):
+        out[key] = t(case[key])
+    return out
+
+
+def run_bm25_case(case: dict, device, kernel=None):
+    """The port's program on ``case`` (tensors on ``device``): the group
+    program through ``bm25.bm25_groups_batch`` or the arena through
+    ``engine._bm25_search_batch``. ``kernel=False`` runs the plain version
+    whatever the device (what the kernel is held against on the card)."""
+    from nucliadb_tpu_torch.index.text_engine import engine as teng
+    from nucliadb_tpu_torch.ops import bm25
+
+    x = bm25_torch_inputs(case, device)
+    flags = dict(count_only=x["count_only"], with_counts=x["with_counts"])
+    if "groups" in x:
+        args = (x["groups"], x["offsets"], x["masks"], x["rows"], x["idfs"], x["params"], x["k"], x["caps"],
+                x["tier_counts"])
+        if kernel is False:
+            return bm25.plain_program(*args, flags["with_counts"], flags["count_only"])
+        return bm25.bm25_groups_batch(*args, shared_mask=x["shared_mask"], **flags)
+    args = (x["tiers"], x["dense"], x["odense"], x["dlen"], x["masks"], x["rows"], x["idfs"], x["params"], x["k"],
+            x["caps"], x["odense_base"])
+    if kernel is False:
+        return teng._bm25_arena_plain(*args, flags["with_counts"], flags["count_only"])
+    return teng._bm25_search_batch(*args, shared_mask=x["shared_mask"], **flags)
+
+
+def bm25_case_rows(case: dict, device, kernel=True):
+    """What the kernel writes for ``case`` before the cut: (final [Q, L],
+    counts [Q, L] or None, matched [Q, L] or its [Q] counts), from one
+    ``bm25.launch_program`` (``kernel``) or the plain version."""
+    from nucliadb_tpu_torch.index.text_engine import engine as teng
+    from nucliadb_tpu_torch.ops import bm25
+
+    x = bm25_torch_inputs(case, device)
+    wc, co = x["with_counts"], x["count_only"]
+    if "groups" in x:
+        if kernel:
+            layout, overlay = bm25.group_layout(x["groups"], x["offsets"]), None
+        else:
+            out = bm25.plain_final(x["groups"], x["offsets"], x["masks"], x["rows"], x["idfs"], x["params"],
+                                   x["caps"], x["tier_counts"], wc)
+    else:
+        if kernel:
+            layout = bm25.arena_layout(x["tiers"], x["dense"], x["dlen"])
+            overlay = bm25.overlay_layout(x["odense"], x["dlen"], len(x["tiers"]) + 1, x["odense_base"])
+        else:
+            out = teng._bm25_arena_final_plain(x["tiers"], x["dense"], x["odense"], x["dlen"], x["masks"], x["rows"],
+                                               x["idfs"], x["params"], x["caps"], x["odense_base"], wc)
+    if kernel:
+        return bm25.launch_program(layout, x["caps"], x["masks"], x["rows"], x["idfs"], x["params"], wc, co,
+                                   overlay=overlay)[:3]
+    return (out[0], out[1], out[2].sum(dim=-1) if co else out[2])
