@@ -89,17 +89,21 @@ line:
      ties), and a batch of high-df AND pairs the cost model sends to the
      device;
    - on the device route every dispatch launches the BM25 program's hand
-     kernel, ``csrc/bm25_program.cu``, once (``ops.bm25.LAUNCHES``); the
+     kernel, ``csrc/bm25_program.cu``, once and its merge kernel at most
+     once (``ops.bm25.LAUNCHES``); the
      launches a device-route request and the BM25 program's share of them
      (``torch.profiler``), the 64 threaded requests against the same one
      after another;
    - the kernel against its plain version at the OR 512, AND 512 and single
-     request shapes, bit for bit (whole final rows, count rows, bitmaps or
-     counts, and the cuts: the kernel's block cuts merged against
-     ``ops/topk.py``'s cut of the whole rows), its time with and without
-     its block cut, the plain program's, the whole program on the card,
-     one ``index_add_`` of the batch's lanes as a yardstick (the scatter
-     alone) and its bound from this run's lanes;
+     request shapes, bit for bit (the rows mode's final rows, count rows,
+     bitmaps or counts, and the cut path's cuts with their counts, bitmaps
+     or match counts against ``ops/topk.py``'s cut of the whole rows), the
+     merge kernel against its plain version on the kernel's tile cuts, the
+     kernel's time on the cut path and in rows mode, the merge's, the plain
+     program's, the whole program on the card, one ``index_add_`` of the
+     batch's lanes as a yardstick (the scatter alone), the program's bound
+     from this run's lanes and a row-keeping design's bound beside it, the
+     tile width, tiles a row and the kernels' launches a dispatch;
    - a breakdown of the device program by stage (CUDA events) with the
      scatter's deterministic and atomic forms, host planning and hits, and
      whole batches on both routes;
@@ -300,7 +304,8 @@ shard's shape: final rows, count rows, bitmaps and cuts.
 It then prints each phase's wall seconds, the kernels' JSON line (each
 kernel's launches on its path and on the node, /find, HTTP, paged, mesh,
 cluster and ops phases' counted paths, times, bound from this run's shapes
-and its share of it; the BM25 program's at the OR batch of 512)
+and its share of it; the BM25 program's and its merge's at the OR batch of
+512; it fails if a kernel of the main path launched no time there)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
@@ -1114,7 +1119,7 @@ def phase_paged(torch, slot_scan, binary_scan, corpus, device="cuda"):
     floor_hits = searcher.search(VectorSearchRequest(vectors=q_np[64:80], top_k=TOP_K, min_score=0.9))
     dup_hits = searcher.search(VectorSearchRequest(vectors=q_np[:64], top_k=TOP_K, with_duplicates=True))
     launches = dict(slot_scan.LAUNCHES, **binary_scan.LAUNCHES)
-    bm25_launches = bm25.LAUNCHES.get("program", 0)  # a vector-only path: no keyword program
+    bm25_launches = bm25.LAUNCHES.total()  # the BM25 kernels' (program, merge): a vector-only path has none
     # ----------------------------------------------------------------------
     check(launches.get("top2", 0) >= 4, f"top-2 slot-scan kernel launched {launches} on the host_rerank path")
     check(launches.get("top1", 0) == 0 and launches.get("binary", 0) == 0, f"host_rerank launched {launches}")
@@ -1497,10 +1502,11 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
                             for i, (p, q) in enumerate(zip(psearchers, queries))])
         dispatched = bm25.DISPATCHES.total()
         tg_launches = bm25.LAUNCHES.get("program", 0)
+        tg_merges = bm25.LAUNCHES.get("merge", 0)
         # ----
         check(dispatched == members * len(reqs), f"the text group dispatched {dispatched} programs")
-        check(tg_launches == (dispatched if device == "cuda" else 0),
-              f"the text group launched bm25_program {tg_launches} times")
+        check(tg_launches == (dispatched if device == "cuda" else 0) and tg_merges <= tg_launches,
+              f"the text group launched bm25_program {tg_launches} times, its merge {tg_merges}")
         for req, got in zip(reqs, grouped):
             for p, g in zip(psearchers, got):
                 want = p.search(req)
@@ -1557,10 +1563,11 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
         hy_ms, _ = median_ms(lambda: hyb.search(hq, kq[0], TOP_K))
         out["keyword"] = {"build_s": t_kw, "group_ms": tg_ms, "sequential_ms": ts_ms, "engine_ms": te_ms,
                           "hybrid_ms": hy_ms, "hybrid_recall": h_rec}
-        out["keyword"].update(text_group_launches=tg_launches, arena_max_abs_err=arena_err)
+        out["keyword"].update(text_group_launches=tg_launches, text_group_merges=tg_merges,
+                              arena_max_abs_err=arena_err)
         print(f"mesh keyword: {members} shards of {n} paragraphs (written and opened in {t_kw:.1f}s); text group "
               f"= the sequential engines on {len(reqs)} requests ({dispatched} dispatches, {tg_launches} launches "
-              f"of bm25_program), a request {tg_ms:.2f} ms "
+              f"of bm25_program, {tg_merges} of its merge), a request {tg_ms:.2f} ms "
               f"against {ts_ms:.2f} ms sequential; sharded engine = the engines' merge up to ties on {len(kq)} "
               f"queries, {te_ms:.2f} ms; hybrid of {len(hq)} x 1 = the host RRF of its merged legs, vector leg "
               f"recall@10 {h_rec:.4f}, {hy_ms:.2f} ms", flush=True)
@@ -1573,7 +1580,7 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
     # ---- serving: search_multi over a node's 4 shards ---------------------
     out["serving"] = mesh_serving(torch, slot_scan, tmp, cfg, device)
     print(f"mesh numbers: {json.dumps(out)}", flush=True)
-    return launches, tg_launches, arena_err
+    return launches, tg_launches, tg_merges, arena_err
 
 
 def mesh_serving(torch, slot_scan, tmp, cfg, device):
@@ -1892,9 +1899,9 @@ def bm25_kernel_served(counts, what, device) -> None:
     ``csrc/bm25_program.cu`` once (``counts`` holds ``bm25.DISPATCHES`` and
     ``bm25.LAUNCHES``); on the CPU the plain version counts no launch."""
     dispatched = sum(counts.get(key, 0) for key in BM25_DISPATCH_KEYS)
-    launched = counts.get("program", 0)
-    check(launched == (dispatched if device == "cuda" else 0),
-          f"{what}: {dispatched} BM25 dispatches, {launched} launches of bm25_program")
+    launched, merged = counts.get("program", 0), counts.get("merge", 0)
+    check(launched == (dispatched if device == "cuda" else 0) and merged <= launched,
+          f"{what}: {dispatched} BM25 dispatches, {launched} launches of bm25_program, {merged} of its merge")
 
 
 def phase_keyword(torch, tmp, cfg, device="cuda"):
@@ -2030,7 +2037,7 @@ def phase_keyword(torch, tmp, cfg, device="cuda"):
     t_seq = (time.perf_counter() - t) * 1e3
     per_request = program = None
     if device == "cuda":
-        per_request = device_launches(torch, lambda: [para.search(r) for r in threaded[:8]]) / 8
+        per_request = device_launches(torch, lambda: [para.search(r) for r in threaded[:8]], 8)
         terms, required = engine._plan_terms(single_q)
         rows_np, idfs_np, params_np, caps = engine._device_inputs_planned(terms, required, single_q)
         single_in = [torch.from_numpy(a).to(engine.device) for a in (rows_np, idfs_np, params_np)]
@@ -2041,7 +2048,7 @@ def phase_keyword(torch, tmp, cfg, device="cuda"):
     print(
         f"keyword launches: {per_request} a device-route request (kernels, copies and fills on the card, "
         f"torch.profiler, mean of 8 ParagraphSearcher requests), {program} of them the BM25 program's (a single "
-        f"query's bm25_groups alone: the kernel, the cut); {len(threaded)} requests from {cfg['threads']} threads "
+        f"query's bm25_groups alone: the kernel and its merge); {len(threaded)} requests from {cfg['threads']} threads "
         f"{t_burst:.1f} ms against {t_seq:.1f} ms one after another ({t_burst / t_seq:.3f}x)",
         flush=True,
     )
@@ -2107,7 +2114,8 @@ def phase_keyword(torch, tmp, cfg, device="cuda"):
     del para2, fresh
     if device == "cuda":
         torch.cuda.empty_cache()
-    return SimpleNamespace(dispatches=dispatches, launches=launches.get("program", 0), kernel=kernel)
+    return SimpleNamespace(dispatches=dispatches, launches=launches.get("program", 0),
+                           merge_launches=launches.get("merge", 0), kernel=kernel)
 
 
 def engine_hit(hit, doc_id=None):
@@ -2139,6 +2147,7 @@ def kw_breakdown(torch, para, or_q, and_q, tier, device):
     k, caps, rows_np, idfs_np, params_np = engine.plan_batch(or_q)
     groups, offs, tc = engine._group_tensors(), engine._offsets(), tuple(engine._tier_group_counts())
     mask = engine.base_mask_device()
+    layout = engine.program_layout()  # None on the CPU: the plain version
 
     def upload():
         return [torch.from_numpy(a).to(dev) for a in (rows_np, idfs_np, params_np)]
@@ -2177,17 +2186,17 @@ def kw_breakdown(torch, para, or_q, and_q, tier, device):
         ),
         "whole_program_or": timed(
             lambda: bm25.bm25_groups_batch(groups, offs, mask, rows, idfs, params, k, caps, tc,
-                                           shared_mask=True, count_only=True, with_counts=False), 5
+                                           shared_mask=True, count_only=True, with_counts=False, layout=layout), 5
         ),
     }
     ka, caps_a, ra, ia, pa = engine.plan_batch(and_q)
     ra, ia, pa = (torch.from_numpy(a).to(dev) for a in (ra, ia, pa))
     out["whole_program_and"] = timed(
         lambda: bm25.bm25_groups_batch(groups, offs, mask, ra, ia, pa, ka, caps_a, tc,
-                                       shared_mask=True, count_only=True, with_counts=True), 5
+                                       shared_mask=True, count_only=True, with_counts=True, layout=layout), 5
     )
     res = bm25.bm25_groups_batch(groups, offs, mask, rows, idfs, params, k, caps, tc,
-                                 shared_mask=True, count_only=True, with_counts=False)
+                                 shared_mask=True, count_only=True, with_counts=False, layout=layout)
     if device == "cuda":
         torch.cuda.synchronize()
     out["host_fetch"] = host_ms(lambda: device_fetch(*res), 3)
@@ -2216,47 +2225,43 @@ def kw_breakdown(torch, para, or_q, and_q, tier, device):
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
         bm25.bm25_groups_batch(groups, offs, mask, rows, idfs, params, k, caps, tc,
-                               shared_mask=True, count_only=True, with_counts=False)
+                               shared_mask=True, count_only=True, with_counts=False, layout=layout)
         torch.cuda.synchronize()
         out["peak_gib_or_batch"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
     out = {key: (round(v, 3) if isinstance(v, float) else v) for key, v in out.items()}
     return f"breakdown keyword (ms, batch {n_q}, {engine.n_docs} paragraphs): {json.dumps(out)}"
 
 
-def device_launches(torch, fn) -> int:
+def device_launches(torch, fn, per: int = 1):
     """Kernels, copies and fills that ``fn()`` put on the card, counted by
-    ``torch.profiler`` (CUDA activity), after one warm-up call. A profile
-    that saw no device event at all (a profile right after another has come
-    back empty on the H100) is taken again, at most three times."""
+    ``torch.profiler`` (CUDA activity), after one warm-up call, over
+    ``per``. A profile that saw no device event at all is taken again after
+    a pause, at most six times; the card's profiler has come back empty six
+    times in a row within one process while ``fn()`` ran its kernels (the
+    launch counters saw them), so the count is then None: not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
         if n:
-            return n
-    check(False, "torch.profiler saw no device event in three profiles")
+            return n / per
+    print("note: torch.profiler saw no device event in six profiles: launches not measured", flush=True)
+    return None
 
 
-def bm25_bound_ms(torch, bm25, layout, caps, masks, rows, with_counts: bool, count_only: bool, k: int,
-                  n_chunks: int) -> tuple[float, dict]:
-    """The least time of the kernel's work on an H100, from this run's data:
-    its bytes at the HBM rate (its few operations a lane are far below the
-    f32 rate). Read once: the doc ids of every scheduled posting row (4 B a
-    lane), tf and dl of each valid lane (8 B), each scheduled dense slot's
-    window (1 B a column) and each dense block's dl window (4 B a column),
-    the mask, rows, idfs and params; a 32 B sector for each valid lane's
-    random score update (and count update); written once: final (4 B a
-    column), the count row (4 B, with counts), the matched bitmap (1 B,
-    unless ``count_only``) and the blocks' cuts (12 B an entry). Returns
-    (ms, the counts it used)."""
-    n_q, n_slots = rows.shape
-    L = masks.shape[-1]
+def bm25_work(bm25, layout, caps, rows) -> dict:
+    """What this run's data asks of the BM25 program: the lanes of every
+    scheduled posting row, the valid ones among them (a doc, not padding),
+    and the bytes of the scheduled dense slots' windows (1 B a column) and
+    of each scheduled dense block's dl window (4 B a column)."""
     starts = np.concatenate([[0], np.cumsum(caps)])
     lanes = valid = dense_bytes = 0
     for rec in layout.records:
@@ -2273,10 +2278,54 @@ def bm25_bound_ms(torch, bm25, layout, caps, masks, rows, with_counts: bool, cou
                 dense_bytes += int(ok.sum()) * width
         if rec.kind != bm25.POSTING and hi > lo:
             dense_bytes += 4 * width
+    return {"lanes": lanes, "valid_lanes": valid, "dense_bytes": dense_bytes}
+
+
+def bm25_bound_ms(work, masks, rows, with_counts: bool, count_only: bool, k: int, rows_mode: bool = False) -> tuple:
+    """The least time of the BM25 program's own work on an H100, from this
+    run's data (``bm25_work``), whatever implements it: its bytes at the
+    HBM rate (its ~10 f32 operations a valid lane are far below the f32
+    rate). Read once: the doc id of every lane of a scheduled posting row
+    (4 B), tf and dl of each valid lane (8 B), the dense windows, the mask,
+    rows, idfs and params; written once: the cut (a score, an id and a
+    count: 20 B an entry) and the matched bitmap (1 B a column) or the
+    match counts (8 B a query). ``rows_mode`` adds final (4 B a column)
+    and, with counts, the count row (4 B a column): the rows mode's outputs.
+    Returns (ms, bytes)."""
+    n_q, n_slots = rows.shape
+    L = masks.shape[-1]
+    total = (4 * work["lanes"] + 8 * work["valid_lanes"] + work["dense_bytes"] + masks.numel() + 8 * n_q * n_slots
+             + 12 * n_q + 20 * n_q * k + (8 * n_q if count_only else n_q * L))
+    if rows_mode:
+        total += n_q * L * (8 if with_counts else 4)
+    return total / HBM_BYTES_PER_S * 1e3, total
+
+
+def bm25_row_bound_ms(work, masks, rows, with_counts: bool, count_only: bool, k: int, sm_count: int) -> float:
+    """The bound of a kernel that keeps the [Q, L] score rows in device
+    memory, on the same run's data: the bytes of ``bm25_bound_ms`` less the
+    cut and bitmap outputs, plus a 32 B sector for each valid lane's random
+    score update (and count update), the rows written final (and the count
+    row), the bitmap unless ``count_only``, and 12 B an entry of each row
+    chunk's cut (``2 * sm_count // Q`` chunks of at least 8192 columns).
+    Kept to restate that design's shares against the program's bound."""
+    n_q, n_slots = rows.shape
+    L = masks.shape[-1]
+    n_chunks = max(1, min(max(1, (2 * sm_count) // n_q), -(-L // 8192)))
+    n_chunks = -(-L // -(-L // n_chunks))
     sector = 32 * (2 if with_counts else 1)
-    total = (4 * lanes + (8 + sector) * valid + dense_bytes + masks.numel() + 8 * n_q * n_slots + 12 * n_q
-             + n_q * L * (4 + (4 if with_counts else 0) + (0 if count_only else 1)) + 12 * n_q * n_chunks * k)
-    return total / HBM_BYTES_PER_S * 1e3, {"lanes": lanes, "valid_lanes": valid, "bytes": total}
+    total = (4 * work["lanes"] + (8 + sector) * work["valid_lanes"] + work["dense_bytes"] + masks.numel()
+             + 8 * n_q * n_slots + 12 * n_q + n_q * L * (4 + (4 if with_counts else 0) + (0 if count_only else 1))
+             + 12 * n_q * n_chunks * k)
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def bm25_merge_bound_ms(n_q, n_tiles, k, count_only) -> float:
+    """The merge's bytes at the HBM rate: the tiles' cuts read once (20 B
+    an entry; the tiles' match counts, 8 B each), the row's cut written
+    once (20 B an entry; the match count, 8 B a query)."""
+    total = 20 * n_q * n_tiles * k + 20 * n_q * k + (8 * n_q * (n_tiles + 1) if count_only else 0)
+    return total / HBM_BYTES_PER_S * 1e3
 
 
 def bm25_same(torch, got, want, what) -> float:
@@ -2346,14 +2395,20 @@ def phase_bm25_kernel(torch, engine, or_q, and_q, single_q) -> dict:
     """``csrc/bm25_program.cu`` against its plain version on the keyword
     phase's engine, at the main path's three shapes: the OR batch of 512
     (no counts, the counts only), the AND batch (hit counts) and a single
-    request (its bitmap), bit for bit (``bm25_group_check``). Times (CUDA
-    events): the kernel as the main path launches it (rows and the blocks'
-    cuts), the kernel without the cut, the plain version of the program
-    (rows and ``ops/topk.py``'s cut), the whole program on the card (the
-    kernel and the merge), and a yardstick: one ``index_add_`` of all of
-    the batch's lanes (the plain version's, padding sent to the sink
-    column) into [Q, L + 1] (atomics in no fixed order: the scatter
-    alone). Prints one line a shape and returns the numbers."""
+    request (its bitmap), bit for bit (``bm25_group_check``: the rows mode's
+    rows, the cut path's cut, counts and bitmap or match counts), and the
+    merge kernel against ``bm25.merge_tile_cuts`` on the kernel's own tile
+    cuts. Times (CUDA events): the kernel as the main path launches it (the
+    tiles' cuts), the kernel in rows mode, the merge, its plain version and
+    ``torch.topk`` of the tile cuts' scores (the merge's yardstick), the
+    plain version of the program (rows and ``ops/topk.py``'s cut), the whole
+    program on the card (the kernel and the merge), and a yardstick: one
+    ``index_add_`` of all of the batch's lanes (the plain version's,
+    padding sent to the sink column) into [Q, L + 1] (atomics in no fixed
+    order: the scatter alone). Bounds from this run's data: the program's
+    own (``bm25_bound_ms``) and a row-keeping design's
+    (``bm25_row_bound_ms``, printed once a shape). Prints one line a shape and
+    returns the numbers."""
     from nucliadb_tpu_torch.ops import bm25
 
     t0 = time.perf_counter()
@@ -2362,6 +2417,7 @@ def phase_bm25_kernel(torch, engine, or_q, and_q, single_q) -> dict:
     base_mask = engine.base_mask_device()
     L = base_mask.shape[0]
     dev = engine.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def upload(*arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
@@ -2378,37 +2434,58 @@ def phase_bm25_kernel(torch, engine, or_q, and_q, single_q) -> dict:
     out = {}
     for name, k, caps, rows, idfs, params, mask, with_counts, count_only in shapes:
         err = bm25_group_check(torch, engine, name, k, caps, rows, idfs, params, mask, with_counts, count_only)
+        n_q = rows.shape[0]
         args = (groups, offs, mask, rows, idfs, params, k, caps, tc)
-        reps = 3 if rows.shape[0] > 1 else 20
+        reps = 3 if n_q > 1 else 20
+        tile, n_tiles = bm25.tiling(n_q, L, sms, layout.dir_cols)
+        # the merge kernel against its plain version on the kernel's tile cuts
+        _, _, part, cut = bm25.launch_program(layout, caps, mask, rows, idfs, params, with_counts, count_only, k)
+        part = part if count_only else None
+        merged = bm25.merge_program_cuts(cut, part, k)
+        merge_err = bm25_same(torch, merged[:2], bm25.merge_tile_cuts(*cut, k), f"bm25 merge, {name}")
+        if count_only:
+            check(torch.equal(merged[2], part.sum(dim=1)), f"bm25 merge, {name}: match counts differ")
         parts = bm25.gather_weights(groups, offs, rows, idfs, params[:, 0], caps, tc, L)
-        base = torch.arange(rows.shape[0], device=dev)[:, None, None] * (L + 1)
+        base = torch.arange(n_q, device=dev)[:, None, None] * (L + 1)
         all_idx = torch.cat([(ids + base).reshape(-1) for ids, _, _ in parts])
         all_w = torch.cat([w.reshape(-1) for _, w, _ in parts])
-        acc = torch.zeros(rows.shape[0] * (L + 1), device=dev)
+        acc = torch.zeros(n_q * (L + 1), device=dev)
         del parts
         row = {
             "ms": cuda_ms(lambda: bm25.launch_program(layout, caps, mask, rows, idfs, params, with_counts,
                                                       count_only, k), reps),
             "rows_ms": cuda_ms(lambda: bm25.launch_program(layout, caps, mask, rows, idfs, params, with_counts,
                                                            count_only), reps),
+            "merge_ms": cuda_ms(lambda: bm25.merge_program_cuts(cut, part, k), reps),
+            "merge_plain_ms": cuda_ms(lambda: bm25.merge_tile_cuts(*cut, k), reps),
+            "merge_library_ms": cuda_ms(lambda: torch.topk(cut[0].view(n_q, -1), k, dim=1), reps),
             "plain_ms": cuda_ms(lambda: bm25.plain_program(*args, with_counts, count_only), reps),
             "program_ms": cuda_ms(lambda: bm25._program(*args, with_counts, count_only, layout=layout), reps),
             "library_ms": cuda_ms(lambda: acc.index_add_(0, all_idx, all_w), reps),
-            "max_abs_err": err,
+            "max_abs_err": err, "merge_max_abs_err": merge_err,
         }
-        del all_idx, all_w, acc
-        n_chunks = bm25.chunking(rows.shape[0], L, torch.cuda.get_device_properties(dev).multi_processor_count)[1]
-        row["bound_ms"], used = bm25_bound_ms(torch, bm25, layout, caps, mask, rows, with_counts, count_only, k,
-                                              n_chunks)
+        del all_idx, all_w, acc, cut, merged
+        work = bm25_work(bm25, layout, caps, rows)
+        row["bound_ms"], row["bytes"] = bm25_bound_ms(work, mask, rows, with_counts, count_only, k)
+        row["rows_bound_ms"] = bm25_bound_ms(work, mask, rows, with_counts, count_only, 0, rows_mode=True)[0]
+        row["row_design_bound_ms"] = bm25_row_bound_ms(work, mask, rows, with_counts, count_only, k, sms)
+        row["merge_bound_ms"] = bm25_merge_bound_ms(n_q, n_tiles, k, count_only)
         row["share"] = row["bound_ms"] / row["ms"]
-        row.update(used, blocks_a_row=n_chunks, table_records=len(layout.table(caps, L)[0]))
+        row["program_share"] = row["bound_ms"] / row["program_ms"]
+        row["rows_share"] = row["rows_bound_ms"] / row["rows_ms"]
+        before = bm25.LAUNCHES.total()
+        bm25._program(*args, with_counts, count_only, layout=layout)
+        row.update(work, tile_cols=tile, blocks_a_row=n_tiles, table_records=len(layout.table(caps, L)[0]),
+                   kernel_launches_a_dispatch=bm25.LAUNCHES.total() - before)
         out[name] = row
-        print(f"bm25 kernel vs plain, {name} (Q={rows.shape[0]}, L={L}, k={k}, with_counts={with_counts}, "
-              f"count_only={count_only}): bit-identical final rows, counts, bitmaps and cuts; "
-              f"{json.dumps({key: round(v, 4) if isinstance(v, float) else v for key, v in row.items()})}",
+        print(f"bm25 kernel vs plain, {name} (Q={n_q}, L={L}, k={k}, with_counts={with_counts}, "
+              f"count_only={count_only}): bit-identical rows, counts, bitmaps and cuts, the merge bit-identical "
+              f"to merge_tile_cuts; {json.dumps({key: round(v, 4) if isinstance(v, float) else v for key, v in row.items()})}",
               flush=True)
         torch.cuda.empty_cache()
-    print(f"bm25 kernel phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"bm25 kernel phase: {time.perf_counter() - t0:.1f}s (layout: {layout.n_sorted} posting rows sorted, "
+          f"{sum(d is not None for d in layout.directories)} tiers with a lane directory every {layout.dir_cols} "
+          f"columns, {sum(d.numel() * 4 for d in layout.directories if d is not None) / 2**20:.1f} MiB)", flush=True)
     return out
 
 
@@ -2776,7 +2853,7 @@ def phase_node(torch, tmp, cfg, device="cuda"):
             timings[f"device_idle_share_{name}"] = 1.0 - busy / timings[f"hybrid_{name}"]
             # kernels, copies and fills on the card a request (torch.profiler)
             timings[f"launches_per_hybrid_{name}"] = device_launches(
-                torch, lambda: [node_x.search(sid, r) for r in reqs[:16]]) / 16
+                torch, lambda: [node_x.search(sid, r) for r in reqs[:16]], 16)
 
     # ---- coalescers: threaded requests on both routes -------------------------
     n_t = cfg["threaded"]
@@ -5223,7 +5300,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         paged_launches, paged_bm25 = phase_paged(torch, slot_scan, binary_scan, corpus)
         seconds["slices"], t = time.perf_counter() - t, time.perf_counter()
-        mesh_launches, mesh_bm25, mesh_bm25_err = phase_mesh(torch, slot_scan, corpus, tmp, MESH_FULL)
+        mesh_launches, mesh_bm25, mesh_merge, mesh_bm25_err = phase_mesh(torch, slot_scan, corpus, tmp, MESH_FULL)
         corpus.free(torch)
     seconds["mesh"], t = time.perf_counter() - t, time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5331,7 +5408,25 @@ def main() -> None:
         "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"], "bound_by": "bytes",
         # one index_add_ of all of the batch's lanes: the scatter alone
         "library_ms": bm["library_ms"], "share": bm["bound_ms"] / bm["ms"],
+        "tile_cols": bm["tile_cols"], "blocks_a_row": bm["blocks_a_row"], "row_design_bound_ms": bm["row_design_bound_ms"],
     })
+    # its merge of a row's tile cuts (the second launch of a dispatch), at
+    # the OR batch of 512 on the kernel's own tile cuts; torch.topk of the
+    # tile cuts' scores is the yardstick
+    rows.append({
+        "name": "bm25_merge", "route": "cuda", "source": "nucliadb_tpu_torch/csrc/bm25_program.cu",
+        "replaces": "nucliadb_tpu/index/text_engine/engine.py:1756", "launches": keyword.merge_launches,
+        "node_launches": node.default.get("merge", 0) + node.device.get("merge", 0),
+        "find_launches": find.default.get("merge", 0) + find.device.get("merge", 0),
+        "http_launches": http.default.get("merge", 0) + http.device.get("merge", 0),
+        "paged_launches": paged_bm25, "mesh_launches": mesh_merge,
+        "cluster_launches": cluster.launches.get("merge", 0), "ops_launches": ops.launches.get("merge", 0),
+        "max_abs_err": max(r["merge_max_abs_err"] for r in keyword.kernel.values()),
+        "ms": bm["merge_ms"], "plain_ms": bm["merge_plain_ms"], "bound_ms": bm["merge_bound_ms"], "bound_by": "bytes",
+        "library_ms": bm["merge_library_ms"], "share": bm["merge_bound_ms"] / bm["merge_ms"],
+    })
+    unused = [r["name"] for r in rows if not r["launches"] > 0]
+    check(not unused, f"kernels of the main path launched no time there: {unused}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
 

@@ -46,6 +46,10 @@ using slot_table::NEG_INF;
 
 constexpr int BQ = 16;     // queries per block
 constexpr int PLANES = 4;  // query bit-planes (QUERY_BITS)
+constexpr int MAX_W = 256;  // code words a row at most (D = 8192)
+// The most dynamic shared memory a launch takes (W = MAX_W): the kernel's
+// limit, set to this one value.
+constexpr size_t MAX_SMEM = (size_t)BQ * MAX_W * 16 + 5 * BQ * sizeof(float);
 
 __global__ void __launch_bounds__(slot_table::MAX_THREADS, 3) binary_scan_partial(
     const uint32_t* __restrict__ planes,  // [B, PLANES, W]
@@ -153,9 +157,10 @@ __global__ void __launch_bounds__(slot_table::MAX_THREADS, 3) binary_scan_partia
 }  // namespace
 
 // Launches the scan and the merge on `stream` and returns cudaGetLastError()
-// (0 = ok). The caller guarantees: contiguous buffers; N % S == 0; W in
-// [1, 256]; S a multiple of 32 in [32, 256], or a multiple of 256 up to 1024;
-// n_range a multiple of S; part_* hold ceil(N / n_range) * B * S entries.
+// (0 = ok), cudaErrorInvalidValue for W outside [1, MAX_W]. The caller
+// guarantees: contiguous buffers; N % S == 0; S a multiple of 32 in [32,
+// 256], or a multiple of 256 up to 1024; n_range a multiple of S; part_*
+// hold ceil(N / n_range) * B * S entries.
 extern "C" int binary_slot_scan(
     const void* planes, const void* qmin, const void* qstep, const void* qsum,
     const void* qnorm, const void* codes_t, const void* scale, const void* popcnt,
@@ -167,8 +172,11 @@ extern "C" int binary_slot_scan(
   const int n_ranges = (N + n_range - 1) / n_range;
   const int threads = S < slot_table::MAX_THREADS ? S : slot_table::MAX_THREADS;
   const size_t smem = (size_t)BQ * W * 16 + 5 * BQ * sizeof(float);
+  if (W < 1 || W > MAX_W) return (int)cudaErrorInvalidValue;
+  // one value for the kernel, whatever this launch's W needs: threads
+  // scanning arenas of other widths at once never lower it under another's
   cudaError_t err = cudaFuncSetAttribute(
-      binary_scan_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      binary_scan_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((B + BQ - 1) / BQ, n_ranges, S / threads);
   binary_scan_partial<<<grid, threads, smem, st>>>(

@@ -98,6 +98,10 @@ struct Barriers {
   uint64_t empty[MAX_STAGES];
   uint64_t q_full;
 };
+// The most dynamic shared memory a launch of any instance takes: the
+// alignment slack, the query tile and ring (at most SMEM_BUDGET) and the
+// barriers. Every instance's limit is set to it.
+constexpr size_t MAX_SMEM = 1024 + SMEM_BUDGET + sizeof(Barriers);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -470,8 +474,11 @@ int launch_scan(const void* q, const void* codes, const void* scale, const void*
   const int cps = stage_chunks<RESIDENT, W>(kc);
   const int nstage = ring_stages<RESIDENT, W>(kc, cps);
   const size_t smem = 1024 + (RESIDENT ? kc * Q_CHUNK : 0) + nstage * stage_bytes<RESIDENT, W>(cps) + sizeof(Barriers);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kernel = slot_scan_wgmma<KEEP, W, RESIDENT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // one value per instance, whatever this launch's D needs: threads scanning
+  // arenas of other widths at once never lower it under another's launch
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + TILE_B - 1) / TILE_B, n_ranges, S / W);
   kernel<<<grid, THREADS, smem, st>>>(q_map, c_map, static_cast<const float*>(scale),

@@ -1605,7 +1605,7 @@ def _bm25_arena(
     ``count_only``. On a CUDA device it is one launch of
     ``csrc/bm25_program.cu`` over ``layout`` (the caller's
     ``bm25.arena_layout`` of the arena, or one built here) and the
-    overlay's block, then the merge of the blocks' cuts; on the CPU the
+    overlay's block, then its merge kernel over the tiles' cuts; on the CPU the
     plain version, ``_bm25_arena_plain``; there is no fallback between the
     two."""
     n_tiers = len(tiers)

@@ -5,9 +5,10 @@ Counterparts of the XLA programs of ``nucliadb_tpu/index/text_engine/engine.py``
 (:1855), ``_bm25_groups_batch`` (:1866) and ``_splice_1d`` (:118). They are
 jitted XLA code in the JAX package, not Pallas kernels. Here tensors on a
 CUDA device go through one hand-written kernel, ``csrc/bm25_program.cu``,
-which also cuts each of its blocks' columns to their k best, and the merge
-of those cuts; tensors on the CPU go through the plain version below,
-torch ops that the kernel is held against.
+which keeps a tile of each query's row in shared memory and cuts it to
+its k best, and the same file's merge kernel, which merges a row's tile
+cuts; tensors on the CPU go through the plain version below, torch ops
+that the kernels are held against.
 
 The program is written batched: query ``b`` owns row ``b`` of a
 ``[B, L + 1]`` score buffer, and a single query is a batch of one. Per
@@ -39,17 +40,20 @@ Two things differ from the reference in how, not in what:
   are distinct and no two lanes meet at an address but the sink. Slots add
   in the reference's concatenation order (group, tier, slot), which is
   also the order XLA's sequential scatter sums them in on the CPU. The
-  kernel keeps that order (a block owns a score row and walks the slots)
-  and equals the plain version on the card bit for bit.
+  kernel keeps that order (a block owns a tile of a score row and adds
+  the slots that hit it one after another) and equals the plain version
+  on the card bit for bit.
 
 The kernel's host half is the program table (``Layout``, built by
 ``group_layout`` and ``arena_layout`` once per refresh): one record a
 posting tier or dense block, in the order the plain version adds them,
-with the tensors it reads and where its doc ids land in the score row; a
-launch adds each record's slot columns from its ``caps``. The kernel also
-cuts each block's columns to its k best (``lax.top_k``'s order), so the
-cut on the card is one small merge (``merge_cuts``). ``LAUNCHES`` counts
-the kernel's launches; ``DISPATCHES`` counts programs on either device.
+with the tensors it reads, where its doc ids land in the score row and,
+for a wide tier, a lane directory of its ascending rows; a launch adds
+each record's slot columns from its ``caps``. The kernel cuts each tile to
+its k best (``lax.top_k``'s order) with each entry's count, and the merge
+kernel cuts a row from its tiles' cuts (``merge_tile_cuts`` is its plain
+version). ``LAUNCHES`` counts the kernels' launches (``"program"``,
+``"merge"``); ``DISPATCHES`` counts programs on either device.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import torch
 
 from ..utils import kernels
 from ..utils.counts import LaunchCounter
+from ..utils.platform import stream_wait
 from .topk import NEG_INF, masked_topk
 
 K1 = 1.2
@@ -71,7 +76,7 @@ B = 0.75
 # engine's "arena", "arena_batch"), on either device: shows which route
 # served a request (the host WAND tier dispatches nothing)
 DISPATCHES = LaunchCounter()
-# launches of csrc/bm25_program.cu ("program"); chip_smoke.py reads them
+# launches of csrc/bm25_program.cu's kernels ("program", "merge"); chip_smoke.py reads them
 LAUNCHES = LaunchCounter()
 
 
@@ -212,16 +217,24 @@ def pack_cut(top_s, top_i, counts):
 # --------------------------------------------------------------------------
 
 POSTING, DENSE_SUM, DENSE_DIRECT = 0, 1, 2  # record kinds (csrc/bm25_program.cu)
-# one record as the kernel reads it (struct Rec in the source), 48 bytes
+# one record as the kernel reads it (struct Rec in the source), 64 bytes
 REC_DTYPE = np.dtype([
-    ("p0", "<i8"), ("p1", "<i8"), ("p2", "<i8"),
+    ("p0", "<i8"), ("p1", "<i8"), ("p2", "<i8"), ("dir", "<i8"),
     ("start", "<i4"), ("kind", "<i4"), ("lo", "<i4"), ("hi", "<i4"), ("n_rows", "<i4"), ("width", "<i4"),
+    ("dir_t0", "<i4"), ("dir_n", "<i4"),
 ])
-MAX_RECORDS = 600  # the table the launch's parameter holds (MAX_RECS in the source)
-MAX_SMEM_BYTES = 160 * 1024  # the table and a query's rows and idfs in shared memory (MAX_SMEM)
-KMAX = 1024  # the largest k the kernel's block cut takes; a larger k is cut by ops/topk.py
-_BLOCKS_PER_SM = 2  # __launch_bounds__(THREADS, 2) in the source
-_MIN_CHUNK = 8192  # about the fewest columns a block owns when a row is cut into chunks
+MAX_RECORDS = 500  # the table the launch's parameter holds (MAX_RECS in the source)
+MAX_SLOTS = 65535  # slot columns a launch takes: a hit count fits 16 bits (MAX_SLOTS)
+MAX_DENSE_SLOTS = 1024  # slot columns of one dense record (MAX_DENSE_SLOTS)
+KMAX = 1024  # the largest k the kernel's cut takes; a larger k is cut by ops/topk.py
+MAX_TILE_COLS = 16384  # the widest tile a block holds in shared memory (MAX_TILE)
+TILE_COLS = 8192  # columns a block owns at a full batch
+MIN_TILE_COLS = 2048  # the narrowest tile a small batch cuts its rows into
+DIR_COLS = 2048  # columns one entry of a lane directory spans; tiles are multiples of it
+DIR_MIN_WIDTH = 512  # posting tiers at least this wide get a lane directory; narrower rows are read whole
+_BLOCKS_PER_SM = 3  # __launch_bounds__(THREADS, 3) in the source
+_NO_DOC = 1 << 62  # a padding lane's sort key: after every doc
+_TABLES_KEPT = 64  # launch tables a layout keeps by caps
 
 
 class Record(NamedTuple):
@@ -241,25 +254,78 @@ _POSTING_TYPES = (torch.int32, torch.float32, torch.float32)
 _DENSE_TYPES = (torch.uint8, torch.float32)
 
 
+def ascending_rows(docs, tfs, dls):
+    """``(docs, tfs, dls, n_sorted)``: each posting row with its valid lanes
+    (doc >= 0) first, in ascending doc order, its padding after them. A
+    row that already is so stays; any other row's lanes are sorted by doc
+    (stably, padding last) in copies of the three tensors, which gives the
+    program the same result, since a row's lanes never meet at a column.
+    Raises on a doc twice in one row: its lanes would meet."""
+    key = torch.where(docs >= 0, docs.long(), _NO_DOC)
+    if key.shape[1] < 2:
+        return docs, tfs, dls, 0
+    pad_pair = (key[:, 1:] == _NO_DOC) & (key[:, :-1] == _NO_DOC)
+    bad = ((key[:, 1:] <= key[:, :-1]) & ~pad_pair).any(dim=1)
+    idx = torch.nonzero(bad).flatten()
+    if idx.numel() == 0:
+        return docs, tfs, dls, 0
+    sorted_key, order = torch.sort(key[idx], dim=1, stable=True)
+    if bool(((sorted_key[:, 1:] == sorted_key[:, :-1]) & (sorted_key[:, 1:] != _NO_DOC)).any()):
+        raise ValueError("a posting row holds a doc twice")
+    out = []
+    for t in (docs, tfs, dls):
+        t = t.clone()
+        t[idx] = t[idx].gather(1, order)
+        out.append(t)
+    return (*out, int(idx.numel()))
+
+
+def lane_directory(docs, start: int, dir_cols: int):
+    """``(directory [T, n + 1] int32, t0, n)`` of ascending posting rows
+    whose doc ids land at ``doc + start``: entry j of a row counts its
+    valid lanes at columns below ``(t0 + j) * dir_cols``, so a tile of
+    columns ``[a * dir_cols, b * dir_cols)`` holds the row's lanes
+    ``[dir[row, a - t0], dir[row, b - t0])`` (indices clamped to ``[0,
+    n]``); ``t0 = start // dir_cols`` and entry ``n`` counts every valid
+    lane."""
+    valid = docs >= 0
+    t0 = start // dir_cols
+    cols = torch.where(valid, docs.long() + start, _NO_DOC)
+    last = int(torch.where(valid, cols, -1).max()) if docs.numel() else -1
+    n = max(0, -(-(last + 1) // dir_cols) - t0)
+    bounds = (t0 + torch.arange(n + 1, device=docs.device, dtype=torch.int64)) * dir_cols
+    found = torch.searchsorted(cols, bounds.expand(docs.shape[0], n + 1).contiguous())
+    return found.to(torch.int32).contiguous(), t0, n
+
+
 class Layout:
     """The static half of the kernel's program table: the records in the
     order the plain version adds them (posting tiers first), checked for
     what the kernel takes (contiguous tensors of the expected types on one
     device, windows that start at 0 or later) and packed as ``REC_DTYPE``
-    rows. Built once per refresh (the engine's groups, a mesh member's
-    arena), it holds its tensors, so its pointers stay valid; a launch only
-    fills in the slot columns of its ``caps``."""
+    rows. Each posting row is made ascending (``ascending_rows``: the
+    tensors of a tier with a row out of order are replaced by sorted
+    copies, ``n_sorted`` counts those rows), and each posting tier at least
+    ``DIR_MIN_WIDTH`` wide gets a lane directory every ``DIR_COLS``
+    columns (``lane_directory``), so a block finds its tile's lanes
+    without reading the row. Built once per refresh (the engine's groups,
+    a mesh member's arena), it holds its tensors, so its pointers stay
+    valid; a launch only fills in the slot columns of its ``caps``."""
 
     def __init__(self, records):
-        self.records = list(records)
-        self.n_post = sum(rec.kind == POSTING for rec in self.records)
-        if any(rec.kind == POSTING for rec in self.records[self.n_post:]):
+        self.dir_cols = DIR_COLS
+        self.records = []
+        self.directories = []
+        self.n_sorted = 0
+        self.n_post = sum(rec.kind == POSTING for rec in records)
+        if any(rec.kind == POSTING for rec in records[self.n_post:]):
             raise ValueError("posting records must precede the dense records")
-        self.array = np.zeros(len(self.records), REC_DTYPE)
-        self.slot = np.array([rec.slot for rec in self.records], np.int64)
+        self.array = np.zeros(len(records), REC_DTYPE)
+        self.slot = np.array([rec.slot for rec in records], np.int64)
         self.device = None
         self.end = 0  # the score columns the dense windows need
-        for i, rec in enumerate(self.records):
+        self._tables = {}  # (caps, L) -> table
+        for i, rec in enumerate(records):
             types = _POSTING_TYPES if rec.kind == POSTING else _DENSE_TYPES
             if len(rec.tensors) != len(types):
                 raise ValueError(f"record {i}: {len(rec.tensors)} tensors, kind {rec.kind} takes {len(types)}")
@@ -272,22 +338,48 @@ class Layout:
                 elif t.device != self.device:
                     raise ValueError(f"record {i}: tensors on {t.device} and {self.device}")
             n_rows, width = rec.tensors[0].shape
+            directory, t0, n = None, 0, 0
             if rec.kind == POSTING:
                 if any(t.shape != rec.tensors[0].shape for t in rec.tensors):
                     raise ValueError(f"record {i}: docs, tfs and dls differ in shape")
+                if n_rows * width >= 2**31:
+                    raise ValueError(f"record {i}: a tier of {n_rows} x {width} lanes (the kernel indexes < 2^31)")
+                *tensors, n_sorted = ascending_rows(*rec.tensors)
+                rec = rec._replace(tensors=tuple(tensors))
+                self.n_sorted += n_sorted
+                if width >= DIR_MIN_WIDTH:
+                    directory, t0, n = lane_directory(rec.tensors[0], rec.start, self.dir_cols)
             else:
                 if rec.tensors[1].shape != (width,):
                     raise ValueError(f"record {i}: dl of shape {tuple(rec.tensors[1].shape)} for a window of {width}")
                 if rec.start < 0:
                     raise ValueError(f"record {i}: a window at {rec.start}")
                 self.end = max(self.end, rec.start + width)
+            self.records.append(rec)
+            self.directories.append(directory)
             ptrs = [t.data_ptr() for t in rec.tensors] + [0] * (3 - len(rec.tensors))
-            self.array[i] = (*ptrs, rec.start, rec.kind, 0, 0, n_rows, width)
+            dir_ptr = 0 if directory is None else directory.data_ptr()
+            self.array[i] = (*ptrs, dir_ptr, rec.start, rec.kind, 0, 0, n_rows, width, t0, n)
+        if self.device is not None:
+            stream_wait(self.device)  # the sorted rows and directories are read on other threads' streams
 
     def table(self, caps, L: int, overlay: "Layout | None" = None) -> tuple[np.ndarray, int]:
         """(the records a launch with ``caps`` reads, their posting count):
         this layout's records, then ``overlay``'s dense ones, each with its
-        slot columns; records no slot is scheduled for are left out."""
+        slot columns; records no slot is scheduled for are left out. Kept
+        for the last ``_TABLES_KEPT`` ``caps`` without an overlay (a
+        request's caps repeat)."""
+        key = (tuple(int(c) for c in caps), int(L))
+        if overlay is None and key in self._tables:
+            return self._tables[key]
+        out = self._table(caps, L, overlay)
+        if overlay is None:
+            if len(self._tables) >= _TABLES_KEPT:
+                self._tables.pop(next(iter(self._tables)))
+            self._tables[key] = out
+        return out
+
+    def _table(self, caps, L: int, overlay: "Layout | None") -> tuple[np.ndarray, int]:
         parts = [self] if overlay is None else [self, overlay]
         starts = np.concatenate([[0], np.cumsum(caps, dtype=np.int64)])
         tables = []
@@ -301,7 +393,12 @@ class Layout:
             t["hi"] = starts[lay.slot + 1]
             tables.append(t[t["hi"] > t["lo"]])
         table = np.concatenate(tables)
-        return table, int((table["kind"] == POSTING).sum())
+        n_post = int((table["kind"] == POSTING).sum())
+        dense_slots = table["hi"][n_post:] - table["lo"][n_post:]
+        if len(table) > MAX_RECORDS or (dense_slots > MAX_DENSE_SLOTS).any():
+            raise ValueError(f"{len(table)} table records or a dense record of {int(dense_slots.max(initial=0))} "
+                             f"slots exceed the kernel's table ({MAX_RECORDS}, {MAX_DENSE_SLOTS})")
+        return table, n_post
 
 
 def group_layout(groups, offsets) -> Layout:
@@ -337,31 +434,69 @@ def overlay_layout(odense_tf, dlen, slot: int, odense_base) -> Layout:
     return Layout([Record(DENSE_SUM, slot, (odense_tf, dlen[base : base + opad]), base)])
 
 
-def chunking(n_queries: int, L: int, sm_count: int) -> tuple[int, int]:
-    """(columns a block owns, blocks a query): a batch too small to give
-    every SM ``_BLOCKS_PER_SM`` blocks cuts each row into as many equal
-    chunks as fill the card, at most ``ceil(L / _MIN_CHUNK)``."""
-    want = max(1, (_BLOCKS_PER_SM * sm_count) // n_queries)
-    n = max(1, min(want, -(-L // _MIN_CHUNK)))
-    chunk = -(-L // n)
-    return chunk, -(-L // chunk)
+def tiling(n_queries: int, L: int, sm_count: int, dir_cols: int = DIR_COLS) -> tuple[int, int]:
+    """(columns a block owns, tiles a row): ``TILE_COLS``, halved down to
+    ``MIN_TILE_COLS`` while a batch gives the card fewer than
+    ``_BLOCKS_PER_SM`` blocks an SM, a multiple of ``dir_cols`` and no
+    wider than the row needs."""
+    tile = TILE_COLS
+    while tile > MIN_TILE_COLS and n_queries * -(-L // tile) < _BLOCKS_PER_SM * sm_count:
+        tile //= 2
+    tile = max(dir_cols, -(-tile // dir_cols) * dir_cols)
+    tile = min(tile, -(-L // dir_cols) * dir_cols)
+    if tile > MAX_TILE_COLS:
+        raise ValueError(f"a tile of {tile} columns: the kernel holds at most {MAX_TILE_COLS}")
+    return tile, -(-L // tile)
 
 
 _KERNEL_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int]
-    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
+_MERGE_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+_SM_COUNTS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    """The card's SM count (asked once a device)."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _SM_COUNTS:
+        _SM_COUNTS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SM_COUNTS[key]
+
+
+def _entry(name: str, argtypes):
+    """The C entry ``name`` of the built ``csrc/bm25_program.cu``, typed."""
+    fn = getattr(kernels.load("bm25_program"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def launch_program(layout, caps, masks, rows, idfs, params, with_counts: bool, count_only: bool, k: int = 0,
                    overlay=None):
     """One launch of ``csrc/bm25_program.cu`` for the program ``layout``
     (and ``overlay``) describe with ``caps``, on the tensors' card and its
-    current stream. Returns (final [Q, L] f32, counts [Q, L] f32 or None,
-    matched [Q, L] bool or, under ``count_only``, [Q] int64 match counts,
-    the blocks' cuts ([Q, n_chunks, k] scores, [Q, n_chunks, k] int64
-    columns) or None with ``k`` = 0)."""
+    current stream. Returns (final, counts, matched, cut):
+
+    - rows mode (``k`` = 0): final [Q, L] f32, counts [Q, L] f32 or None,
+      matched [Q, L] bool or, under ``count_only``, [Q] int64 match
+      counts, and None;
+    - cut mode (1 <= ``k`` <= ``KMAX``): None, None, matched [Q, L] bool
+      or, under ``count_only``, [Q, n_tiles] int64 match counts a tile,
+      and the tiles' cuts (scores f32, columns int64, counts int64, each
+      [Q, n_tiles, k]; counts -1 without ``with_counts``) for
+      ``merge_program_cuts``."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"the BM25 kernel runs on a CUDA device, not {dev}")
@@ -380,49 +515,72 @@ def launch_program(layout, caps, masks, rows, idfs, params, with_counts: bool, c
     if sum(caps) != n_slots:
         raise ValueError(f"caps {tuple(caps)} for {n_slots} slot columns")
     if not 0 <= k <= KMAX:
-        raise ValueError(f"k={k}: the kernel's block cut takes 1 to {KMAX} (0: no cut)")
+        raise ValueError(f"k={k}: the kernel's cut takes 1 to {KMAX} (0: rows)")
     for lay in (layout, overlay):
         if lay is not None and lay.records and lay.device != dev:
             raise ValueError(f"a table tensor is on {lay.device}, not {dev}")
     table, n_post = layout.table(caps, L, overlay)
-    if len(table) > MAX_RECORDS or table.nbytes + 8 * n_slots > MAX_SMEM_BYTES:
-        raise ValueError(f"{len(table)} table records and {n_slots} slots exceed the kernel's table")
-    chunk, n_chunks = chunking(n_q, L, torch.cuda.get_device_properties(dev).multi_processor_count)
-    final = torch.empty((n_q, L), dtype=torch.float32, device=dev)
-    counts = torch.empty((n_q, L), dtype=torch.float32, device=dev) if with_counts else None
+    if n_slots > MAX_SLOTS:
+        raise ValueError(f"{n_slots} slot columns: the kernel takes at most {MAX_SLOTS}")
+    tile, n_tiles = tiling(n_q, L, _sm_count(dev), layout.dir_cols)
+    final = counts = part = cut = None
+    if k:
+        ic = torch.empty((2, n_q, n_tiles, k), dtype=torch.int64, device=dev)
+        cut = (torch.empty((n_q, n_tiles, k), dtype=torch.float32, device=dev), ic[0], ic[1])
+    else:
+        final = torch.empty((n_q, L), dtype=torch.float32, device=dev)
+        counts = torch.empty((n_q, L), dtype=torch.float32, device=dev) if with_counts else None
     matched = None if count_only else torch.empty((n_q, L), dtype=torch.bool, device=dev)
-    part = torch.empty((n_q, n_chunks), dtype=torch.int64, device=dev) if count_only else None
-    cut = (torch.empty((n_q, n_chunks, k), dtype=torch.float32, device=dev),
-           torch.empty((n_q, n_chunks, k), dtype=torch.int64, device=dev)) if k else None
-    fn = kernels.load("bm25_program").bm25_program
-    fn.argtypes = _KERNEL_ARGTYPES
-    fn.restype = ctypes.c_int
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    if count_only:
+        part = torch.empty((n_q, n_tiles), dtype=torch.int64, device=dev)
+    fn = _entry("bm25_program", _KERNEL_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         err = fn(
             table.ctypes.data, len(table), n_post,
             rows.data_ptr(), idfs.data_ptr(), n_slots, params.data_ptr(),
             masks.data_ptr(), 0 if masks.dim() == 1 else L,
-            final.data_ptr(), ptr(counts), ptr(matched), ptr(part),
-            *(ptr(t) for t in (cut or (None, None))), k,
-            L, chunk, n_q, stream.cuda_stream,
+            _ptr(final), _ptr(counts), int(with_counts), _ptr(matched), _ptr(part),
+            *(_ptr(t) for t in (cut or (None, None, None))), k, k,
+            L, tile, layout.dir_cols, n_q, stream.cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"bm25_program launch failed: CUDA error {err}")
     LAUNCHES.add("program")
-    if count_only:
-        matched = part[:, 0] if n_chunks == 1 else part.sum(dim=1)
-    return final, counts, matched, cut
+    if not count_only:
+        return final, counts, matched, cut
+    if k:
+        return None, None, part, cut
+    return final, counts, part[:, 0] if n_tiles == 1 else part.sum(dim=1), None
+
+
+def merge_program_cuts(cut, part, k: int):
+    """One launch of ``csrc/bm25_program.cu``'s merge: the rows' cuts from
+    ``launch_program``'s tile cuts ``cut``, as (top scores [Q, k], [k ids |
+    k counts] [Q, 2k] int64, [Q] int64 match counts summed from ``part``
+    [Q, n_tiles], or None without it)."""
+    cut_s, cut_i, cut_c = cut
+    n_q, n_tiles, kk = cut_s.shape
+    if kk != k or not 1 <= k <= KMAX:
+        raise ValueError(f"tile cuts of {kk} entries for k={k}")
+    dev = cut_s.device
+    top_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+    top_ic = torch.empty((n_q, 2 * k), dtype=torch.int64, device=dev)
+    match = None if part is None else torch.empty((n_q,), dtype=torch.int64, device=dev)
+    fn = _entry("bm25_merge", _MERGE_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(cut_s.data_ptr(), cut_i.data_ptr(), cut_c.data_ptr(), n_tiles, k, _ptr(part),
+                 top_s.data_ptr(), top_ic.data_ptr(), _ptr(match), n_q, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bm25_merge launch failed: CUDA error {err}")
+    LAUNCHES.add("merge")
+    return top_s, top_ic, match
 
 
 def merge_cuts(cut_s, cut_i, k: int):
-    """A row's cut ([Q, k] scores, [Q, k] ids) from its blocks' cuts
-    [Q, n_chunks, k]: each block's list is in ``lax.top_k``'s order and
-    the blocks are in column order, so a stable sort by score keeps the
+    """A row's cut ([Q, k] scores, [Q, k] ids) from its tiles' cuts
+    [Q, n_tiles, k]: each tile's list is in ``lax.top_k``'s order and
+    the tiles are in column order, so a stable sort by score keeps the
     lower column first among equal scores."""
     if cut_s.shape[1] == 1:
         return cut_s[:, 0], cut_i[:, 0]
@@ -431,21 +589,32 @@ def merge_cuts(cut_s, cut_i, k: int):
     return top_s[:, :k], cut_i.reshape(n_q, -1).gather(1, order[:, :k])
 
 
+def merge_tile_cuts(cut_s, cut_i, cut_c, k: int):
+    """The plain version of the merge kernel's cut: (top scores [Q, k],
+    [k ids | k counts] [Q, 2k]) from the tiles' cuts with their counts (a
+    padding entry's count rides along from tile 0's list, as the kernel
+    takes it)."""
+    n_q = cut_s.shape[0]
+    _, order = torch.sort(cut_s.reshape(n_q, -1), dim=1, descending=True, stable=True)
+    top_s, top_i = merge_cuts(cut_s, cut_i, k)
+    top_c = cut_c.reshape(n_q, -1).gather(1, order[:, :k])
+    return top_s, torch.cat([top_i, top_c], dim=1)
+
+
 def run_kernel(layout, caps, masks, rows, idfs, params, k: int, with_counts: bool, count_only: bool,
                overlay=None):
-    """The program on the card: the kernel with its block cut, then the
-    merge (``ops/topk.py`` cuts a ``k`` past ``KMAX``). Returns (top
-    scores [Q, k], [k ids | k counts] [Q, 2k], matched [Q, L] or its [Q]
-    counts)."""
-    block_cut = 1 <= k <= KMAX
-    final, counts, matched, cut = launch_program(
-        layout, caps, masks, rows, idfs, params, with_counts, count_only, k if block_cut else 0, overlay,
-    )
-    if cut is None:
+    """The program on the card: the kernel with its tiles' cuts, then the
+    merge kernel (``ops/topk.py`` cuts a ``k`` past ``KMAX`` from the
+    kernel's rows). Returns (top scores [Q, k], [k ids | k counts] [Q, 2k],
+    matched [Q, L] or its [Q] counts)."""
+    if not 1 <= k <= KMAX:
+        final, counts, matched, _ = launch_program(layout, caps, masks, rows, idfs, params, with_counts, count_only,
+                                                   0, overlay)
         top_s, top_ic = topk_cut(final, counts, k)
-    else:
-        top_s, top_ic = pack_cut(*merge_cuts(*cut, k), counts)
-    return top_s, top_ic, matched
+        return top_s, top_ic, matched
+    _, _, matched, cut = launch_program(layout, caps, masks, rows, idfs, params, with_counts, count_only, k, overlay)
+    top_s, top_ic, match = merge_program_cuts(cut, matched if count_only else None, k)
+    return top_s, top_ic, match if count_only else matched
 
 
 def plain_final(groups, offsets, masks, rows, idfs, params, caps, tier_counts, with_counts):

@@ -95,8 +95,9 @@ def test_group_table_follows_the_plain_programs_order():
         tier = x["groups"][g][0][t]
         assert (row["lo"], row["hi"]) == (starts[3 * g + t], starts[3 * g + t + 1])
         assert row["start"] == x["offsets"][g]
-        assert [row["p0"], row["p1"], row["p2"]] == [a.data_ptr() for a in tier]
+        assert [row["p0"], row["p1"], row["p2"]] == [a.data_ptr() for a in tier]  # ascending rows: no copy
         assert (row["n_rows"], row["width"]) == tuple(tier[0].shape)
+        assert row["dir"] == 0  # narrower than DIR_MIN_WIDTH: the kernel reads the whole row
     for row, g in zip(table[len(want):], (0, 2)):
         block, dl = x["groups"][g][1], x["groups"][g][2]
         assert (row["lo"], row["hi"], row["start"]) == (starts[9 + g], starts[10 + g], x["offsets"][g])
@@ -105,7 +106,7 @@ def test_group_table_follows_the_plain_programs_order():
     # the layout is the static half: another launch's caps, the same records
     table2, _ = layout.table((1,) * 12, L)
     assert len(table2) == 12 and table2["hi"].tolist() == list(range(1, 13))
-    assert bm25.REC_DTYPE.itemsize == 48
+    assert bm25.REC_DTYPE.itemsize == 64 and layout.n_sorted == 0
 
 
 @pytest.mark.parametrize("base,start", [(88, 80), (-5, 0), (10, 10), (80, 80)])
@@ -212,14 +213,134 @@ def test_the_launch_takes_cuda_tensors_only(monkeypatch):
 
 
 @pytest.mark.parametrize("n_q,L,chunk,n", [
-    (512, 1 << 20, 1 << 20, 1),  # a full batch: a block a query
-    (1, 1 << 20, 8192, 128),  # a single query: its row cut into 128 chunks
-    (8, 136_000, 8000, 17),
-    (64, 262_144, 65_536, 4),
-    (1, 100, 100, 1),
+    (512, 1 << 20, 8192, 128),  # a full batch: 128 tiles a query
+    (1, 1 << 20, 2048, 512),  # a single query: the narrowest tiles
+    (8, 136_000, 2048, 67),
+    (64, 262_144, 8192, 32),  # a mesh member's arena
+    (1, 100, 2048, 1),  # a row narrower than a tile: one tile of the directory's columns
 ])
 def test_chunking(n_q, L, chunk, n):
-    assert bm25.chunking(n_q, L, 132) == (chunk, n)
+    """``bm25.tiling``: the columns a block owns and the tiles a row."""
+    assert bm25.tiling(n_q, L, 132) == (chunk, n)
+
+
+@pytest.mark.parametrize("n_q,L,sms,dir_cols", [
+    (512, 1 << 20, 132, 2048), (1, 1 << 20, 132, 2048), (3, 196_608, 132, 2048), (2, 21_008, 132, 2048),
+    (1, 1 << 20, 132, 4096), (5, 96, 132, 16), (6, 1000, 8, 64), (7, 50_000, 1, 2048), (300, 7, 132, 1),
+])
+def test_tiling(n_q, L, sms, dir_cols):
+    """A tile is a multiple of the lane directory's columns, within the
+    kernel's shared memory, no wider than the row needs; the tiles cover
+    the row; a small batch gets narrower tiles down to ``MIN_TILE_COLS``,
+    no narrower than needed to give the card its blocks."""
+    tile, n = bm25.tiling(n_q, L, sms, dir_cols)
+    assert tile % dir_cols == 0 and 0 < tile <= bm25.MAX_TILE_COLS
+    assert n == -(-L // tile) and (n - 1) * tile < L <= n * tile
+    assert tile <= max(bm25.TILE_COLS, dir_cols)
+    if tile > max(bm25.MIN_TILE_COLS, dir_cols) and tile >= dir_cols * -(-bm25.TILE_COLS // dir_cols):
+        assert n_q * n >= bm25._BLOCKS_PER_SM * sms or tile >= L
+
+
+# ---------------------------------------------------------------------------
+# the lane directory and the ascending rows
+# ---------------------------------------------------------------------------
+
+
+def _posting_tier(rng, n_rows, width, n_docs):
+    docs = np.full((n_rows, width), -1, np.int32)
+    for r in range(n_rows):
+        n = int(rng.integers(0, width + 1))
+        docs[r, :n] = np.sort(rng.choice(n_docs, n, replace=False))
+    tfs = np.where(docs >= 0, rng.integers(1, 6, docs.shape), 0).astype(np.float32)
+    dls = np.where(docs >= 0, rng.integers(1, 40, docs.shape), 1).astype(np.float32)
+    return docs, tfs, dls
+
+
+@pytest.mark.parametrize("start,dir_cols", [(0, 16), (37, 16), (100, 64), (4096, 2048), (5, 1)])
+def test_lane_directory_against_searchsorted(start, dir_cols):
+    """Entry j of a row's directory is ``searchsorted`` of the row's columns
+    (doc + start, valid lanes) at ``(t0 + j) * dir_cols``; the tile
+    ``[a, b)`` of directory boundaries holds exactly the lanes between its
+    two entries."""
+    rng = np.random.default_rng(start + dir_cols)
+    docs, _, _ = _posting_tier(rng, 9, 40, 300)
+    directory, t0, n = bm25.lane_directory(torch.from_numpy(docs), start, dir_cols)
+    assert directory.dtype == torch.int32 and directory.shape == (9, n + 1) and t0 == start // dir_cols
+    valid = docs >= 0
+    last = int((docs[valid] + start).max())
+    assert (t0 + n) * dir_cols > last and (n == 0 or (t0 + n - 1) * dir_cols <= last)
+    for r in range(9):
+        cols = docs[r][valid[r]].astype(np.int64) + start
+        want = np.searchsorted(cols, (t0 + np.arange(n + 1)) * dir_cols, side="left")
+        np.testing.assert_array_equal(directory[r].numpy(), want)
+        assert directory[r, n] == len(cols)
+        for a in range(t0, t0 + n):
+            lo, hi = directory[r, a - t0], directory[r, min(a + 3, t0 + n) - t0]
+            in_tile = (cols >= a * dir_cols) & (cols < (a + 3) * dir_cols)
+            assert np.flatnonzero(in_tile).tolist() == list(range(lo, hi))
+
+
+def test_layout_builds_directories_for_wide_tiers(monkeypatch):
+    """Tiers at least ``DIR_MIN_WIDTH`` wide carry a directory at the
+    layout's ``DIR_COLS``, offset by their group's start; narrower tiers,
+    dense blocks and the overlay carry none."""
+    monkeypatch.setattr(bm25, "DIR_MIN_WIDTH", 8)
+    monkeypatch.setattr(bm25, "DIR_COLS", 16)
+    x = bm25_torch_inputs(bm25_group_case("dense_overlap"), "cpu")
+    layout = bm25.group_layout(x["groups"], x["offsets"])
+    assert layout.dir_cols == 16
+    for i, rec in enumerate(layout.records):
+        row = layout.array[i]
+        if rec.kind != bm25.POSTING or rec.tensors[0].shape[1] < 8:
+            assert row["dir"] == 0 and layout.directories[i] is None
+            continue
+        directory, t0, n = bm25.lane_directory(rec.tensors[0], rec.start, 16)
+        assert torch.equal(layout.directories[i], directory)
+        assert (row["dir"], row["dir_t0"], row["dir_n"]) == (layout.directories[i].data_ptr(), t0, n)
+    assert sum(d is not None for d in layout.directories) == 6  # widths 8 and 16 of three groups
+
+
+def test_layout_sorts_a_row_out_of_order():
+    """A posting row out of doc order (a shuffled row, padding amid its
+    lanes) is sorted once, with its tf and dl, in a copy of its tier; the
+    other rows and the caller's tensors stay; the plain program gives the
+    same answer over either; a doc twice in a row is refused."""
+    rng = np.random.default_rng(9)
+    docs, tfs, dls = _posting_tier(rng, 6, 16, 200)
+    docs[1, :12] = np.sort(rng.choice(200, 12, replace=False))
+    shuffled = docs.copy(), tfs.copy(), dls.copy()
+    perm = rng.permutation(16)
+    for a in shuffled:
+        a[1] = a[1][perm]
+    orig = [torch.from_numpy(a) for a in shuffled]
+    got_docs, got_tfs, got_dls, n_sorted = bm25.ascending_rows(*orig)
+    assert n_sorted == 1 and got_docs is not orig[0]
+    np.testing.assert_array_equal(got_docs.numpy(), docs)
+    np.testing.assert_array_equal(got_tfs.numpy(), tfs)
+    np.testing.assert_array_equal(got_dls.numpy(), dls)
+    np.testing.assert_array_equal(orig[0].numpy(), shuffled[0])  # the caller's tier is not touched
+    same = bm25.ascending_rows(*(torch.from_numpy(a) for a in (docs, tfs, dls)))
+    assert same[3] == 0
+    layout = bm25.Layout([bm25.Record(bm25.POSTING, 0, tuple(orig), 5)])
+    assert layout.n_sorted == 1 and layout.array[0]["p0"] == layout.records[0].tensors[0].data_ptr()
+    np.testing.assert_array_equal(layout.records[0].tensors[0].numpy(), docs)
+    # the program over the shuffled tier equals the program over the sorted one
+    L = 210
+    rows = torch.tensor([[1, 0, 3], [1, -1, 5]], dtype=torch.int32)
+    idfs = torch.tensor([[1.5, 0.7, 2.0], [0.4, 1.0, 1.1]])
+    params = torch.tensor([[12.0, 1.0, -3.0e38], [9.0, 2.0, -3.0e38]])
+    mask = torch.ones(L, dtype=torch.bool)
+    for with_counts in (False, True):
+        want = bm25.plain_final((((tuple(torch.from_numpy(a) for a in (docs, tfs, dls)),), None, None),), (5,),
+                                mask, rows, idfs, params, (3, 0), (1,), with_counts)
+        got = bm25.plain_final((((tuple(orig),), None, None),), (5,), mask, rows, idfs, params, (3, 0), (1,),
+                               with_counts)
+        for g, w in zip(got, want):
+            assert g is None and w is None or torch.equal(g, w)
+    twice = docs.copy()
+    twice[2, :2] = [7, 7]
+    with pytest.raises(ValueError, match="twice"):
+        bm25.ascending_rows(torch.from_numpy(twice), torch.from_numpy(tfs), torch.from_numpy(dls))
 
 
 # ---------------------------------------------------------------------------
@@ -227,14 +348,16 @@ def test_chunking(n_q, L, chunk, n):
 # ---------------------------------------------------------------------------
 
 
-def _block_cuts(final, chunk, k):
-    """Each block's cut as the kernel writes it: its columns' k best real
+def _block_cuts(final, chunk, k, counts=None):
+    """Each tile's cut as the kernel writes it: its columns' k best real
     entries by score descending, then column ascending, padded (NEG_INF,
-    -1)."""
+    -1); with ``counts`` also each entry's count (a padding entry's: the
+    count at the tile's first column)."""
     n_q, L = final.shape
     n_chunks = -(-L // chunk)
     cut_s = torch.full((n_q, n_chunks, k), NEG_INF)
     cut_i = torch.full((n_q, n_chunks, k), -1, dtype=torch.int64)
+    cut_c = torch.empty((n_q, n_chunks, k), dtype=torch.int64)
     for b in range(n_chunks):
         part = final[:, b * chunk : (b + 1) * chunk]
         s, order = torch.sort(part, dim=1, descending=True, stable=True)
@@ -242,17 +365,27 @@ def _block_cuts(final, chunk, k):
         real = s[:, :n] > NEG_INF / 2
         cut_s[:, b, :n] = torch.where(real, s[:, :n], NEG_INF)
         cut_i[:, b, :n] = torch.where(real, order[:, :n] + b * chunk, -1)
-    return cut_s, cut_i
+        if counts is not None:
+            cut_c[:, b] = counts[:, b * chunk, None].long()
+            cut_c[:, b, :n] = torch.where(real, counts.gather(1, cut_i[:, b, :n].clamp_min(0)).long(),
+                                          counts[:, b * chunk, None].long())
+    return (cut_s, cut_i) if counts is None else (cut_s, cut_i, cut_c)
 
 
-@pytest.mark.parametrize("L,chunk,k", [
+_TILE_SHAPES = [
     (1000, 1000, 10), (1000, 128, 10), (1000, 128, 300), (50, 8, 64), (1000, 333, 1), (1000, 1000, 1000), (7, 3, 2),
-])
+    # the kernel's tiles: a row of 32,768 columns in 16 tiles of 2048 and 4 of 8192, k = 20 and KMAX
+    (32_768, 2048, 20), (32_768, 8192, 20), (32_768, 2048, 1024), (20_000, 8192, 20),
+]
+
+
+@pytest.mark.parametrize("L,chunk,k", _TILE_SHAPES)
 def test_merged_block_cuts_equal_the_whole_rows_cut(L, chunk, k):
     """Scores from a few values (thousands of ties), a third of the entries
-    not kept: the merge of the blocks' cuts is ``masked_topk`` of the row,
+    not kept: the merge of the tiles' cuts is ``masked_topk`` of the row,
     ids and scores, and ``pack_cut`` reads each hit's count (an empty slot's
-    from column 0)."""
+    from column 0); ``merge_tile_cuts``, the merge kernel's plain version,
+    carries the tiles' counts to the same ``[ids | counts]``."""
     rng = np.random.default_rng(L + chunk + k)
     final = torch.from_numpy(rng.integers(1, 6, (4, L)).astype(np.float32) * 0.5)
     final[torch.from_numpy(rng.random((4, L)) < 0.33)] = NEG_INF
@@ -263,6 +396,8 @@ def test_merged_block_cuts_equal_the_whole_rows_cut(L, chunk, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     want_s, want_i = masked_topk(final, k)
     assert torch.equal(got[1][:, :k], want_i) and (want_i[3] == -1).all()
+    tiled = bm25.merge_tile_cuts(*_block_cuts(final, chunk, k, counts), k)
+    assert torch.equal(tiled[0], want[0]) and torch.equal(tiled[1], want[1])
 
 
 @pytest.mark.parametrize("kind,name", ALL_CASES)

@@ -157,6 +157,44 @@ def test_binary_kernel_matches_plain_version(b, slots):
     assert int(got[1][1, 100]) == 100  # the planted tie keeps the lower id
 
 
+def test_cuda_slot_scans_from_two_threads_at_two_widths():
+    """Two threads scan arenas of different widths at once, many times
+    over, through the top-2 and the top-1 modes of ``int8_slot_scan.cu``
+    (D = 128, resident, and 3072, streamed) and ``binary_slot_scan.cu`` (D
+    = 128 and 8192: 1,344 and 65,856 bytes of shared memory): each answer
+    equals its solo answer bit for bit. Each kernel instance's
+    shared-memory limit is one value set for the process, so a launch of
+    one width never finds it lowered by another thread's."""
+    _need_card()
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke
+    from nucliadb_tpu_torch.utils.platform import thread_stream
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    int8_in = {d: chip_smoke.kernel_inputs(gen, d, 256, 65536, 64, "cuda") for d in (128, 3072)}
+    bin_in = {d: _binary_args(np.random.default_rng(d), 4096, 16, d=d, slots=256) for d in (128, 8192)}
+    jobs = []  # neighbours differ in width: two threads take them at once
+    for keep in (2, 1):
+        for d, args in int8_in.items():
+            if keep == 2:
+                jobs.append(lambda a=args: slot_scan.int8_scan_slots_resident2(*a, slots=256))
+            else:
+                jobs.append(lambda a=args: slot_scan.int8_scan_slots(*a, block_n=1024, slots=256))
+    for d, args in bin_in.items():
+        jobs.append(lambda a=args, d=d: binary_scan.binary_scan_slots(*a, dim=d, block_n=1024, slots=256))
+    solo = [[t.cpu() for t in job()] for job in jobs]
+
+    def run(i):
+        thread_stream("cuda")
+        return i % len(jobs), [t.cpu() for t in jobs[i % len(jobs)]()]  # on its stream
+
+    with ThreadPoolExecutor(2) as pool:
+        for i, got in pool.map(run, range(40 * len(jobs))):
+            _bits_equal(got, solo[i])
+
+
 @pytest.mark.parametrize("quantization", ["int8", "binary"])
 def test_cuda_pallas_index_matches_cpu_index(tmp_path, quantization):
     """The ``pallas`` flag routes on a cuda index (kernels) and a cpu index
@@ -324,7 +362,7 @@ def test_cuda_bm25_kernel_equals_plain_version(monkeypatch, kind, name, whole_ro
     """``bm25_groups_batch`` and ``_bm25_search_batch`` on the card launch
     the kernel once and equal the plain version on the card bit for bit
     (with ``whole_rows``, a cut at k = L: every score of every row, by the
-    kernel's block cut up to ``bm25.KMAX`` and by ``ops/topk.py`` past
+    kernel's tile cuts and merge up to ``bm25.KMAX`` and by ``ops/topk.py`` past
     it), with ``torch.cuda.synchronize`` made to raise."""
     _need_card()
     from nucliadb_tpu_torch.ops import bm25
@@ -360,15 +398,121 @@ def test_cuda_bm25_kernel_rows_equal_plain_rows(kind, name):
     _same_program_outputs([t for t in got if t is not None], [t for t in want if t is not None])
 
 
-def test_cuda_bm25_kernel_from_threads(monkeypatch):
+# tile settings that put the kernel's tile edges inside the test cases' rows:
+# tiles of 32 columns with a lane directory every 16 for every tier (each
+# posting row straddles tiles; the groups' dense windows at 40 and 64, and
+# the arena overlay's clamped window at 80, start mid-tile), tiles of 64
+# with directories for the tiers of 8 and 16 lanes beside a narrow tier read
+# whole, and tiles of 1024 (``ties_wide``'s tiles keep a few hundred entries:
+# the kept list's radix select; at the default 8192, thousands: the tile's)
+_TILE_SETTINGS = {
+    "default": {},
+    "small": dict(TILE_COLS=32, MIN_TILE_COLS=32, DIR_COLS=16, DIR_MIN_WIDTH=4),
+    "mixed": dict(TILE_COLS=64, MIN_TILE_COLS=64, DIR_COLS=32, DIR_MIN_WIDTH=8),
+    "medium": dict(TILE_COLS=1024, MIN_TILE_COLS=1024, DIR_COLS=512, DIR_MIN_WIDTH=8),
+}
+
+
+def _shuffle_rows(case, seed):
+    """``case`` with the lanes of every other posting row shuffled (docs,
+    tfs and dls alike): rows the ``Layout`` has to sort."""
+    rng = np.random.default_rng(seed)
+    tiers = [t for tiers, _, _ in case["groups"] for t in tiers] if "groups" in case else case["tiers"]
+    for docs, tfs, dls in tiers:
+        for r in range(0, docs.shape[0], 2):
+            perm = rng.permutation(docs.shape[1])
+            for a in (docs, tfs, dls):
+                a[r] = a[r][perm]
+    return case
+
+
+@pytest.mark.parametrize("cut", ["k", "whole_rows", "past_kmax", "sorted_rows"])
+@pytest.mark.parametrize("setting", ["small", "mixed", "medium"])
+@pytest.mark.parametrize("kind,name", _bm25_cases())
+def test_cuda_bm25_tiles_equal_plain_version(monkeypatch, kind, name, setting, cut):
+    """The kernel at tiles that cut the cases' rows (``_TILE_SETTINGS``):
+    posting rows straddling tile edges, dense and overlay windows starting
+    mid-tile, ties of the k-th score across tiles (``ties_wide``: thousands
+    of equal scores over hundreds of tiles), tiles with fewer kept entries
+    than k, a k past ``bm25.KMAX`` (rows mode and ``ops/topk.py``'s cut),
+    rows the ``Layout`` had to sort. The program (kernel, then merge, each
+    launched once) and the kernel's rows equal the plain version bit for
+    bit."""
+    _need_card()
+    from nucliadb_tpu_torch.ops import bm25
+    from torch_test_helpers import bm25_arena_case, bm25_case_rows, bm25_group_case, run_bm25_case
+
+    for const, value in _TILE_SETTINGS[setting].items():
+        monkeypatch.setattr(bm25, const, value)
+    case = bm25_group_case(name) if kind == "group" else bm25_arena_case(name)
+    if cut == "whole_rows":
+        case["k"] = case["masks"].shape[-1]
+    elif cut == "past_kmax":
+        case["k"] = bm25.KMAX + 1
+    elif cut == "sorted_rows":
+        case = _shuffle_rows(case, 7)
+    _refuse_synchronize(monkeypatch)
+    before = dict(bm25.LAUNCHES)
+    got = run_bm25_case(case, "cuda")
+    tile_cut = 1 <= case["k"] <= bm25.KMAX
+    assert bm25.LAUNCHES["program"] == before.get("program", 0) + 1
+    assert bm25.LAUNCHES["merge"] == before.get("merge", 0) + tile_cut
+    _same_program_outputs(got, run_bm25_case(case, "cuda", kernel=False))
+    rows = bm25_case_rows(case, "cuda")
+    want = bm25_case_rows(case, "cuda", kernel=False)
+    assert (rows[1] is None) == (want[1] is None)
+    _same_program_outputs([t for t in rows if t is not None], [t for t in want if t is not None])
+
+
+def test_cuda_bm25_merge_equals_its_plain_version():
+    """The merge kernel against ``bm25.merge_tile_cuts`` on tile cuts the
+    kernel wrote (a row of 32,768 columns in 16 tiles, thousands of equal
+    scores, a row with nothing kept), with the match counts summed."""
+    _need_card()
+    from nucliadb_tpu_torch.ops import bm25
+
+    rng = np.random.default_rng(3)
+    tiers = []
+    for width, n_rows in ((64, 40), (1024, 6)):
+        docs = np.full((n_rows, width), -1, np.int32)
+        for r in range(n_rows):
+            n = int(rng.integers(1, width + 1))
+            docs[r, :n] = np.sort(rng.choice(32_768, n, replace=False))
+        tfs = np.where(docs >= 0, 1, 0).astype(np.float32)
+        dls = np.where(docs >= 0, 10, 1).astype(np.float32)
+        tiers.append(tuple(torch.from_numpy(a).cuda() for a in (docs, tfs, dls)))
+    layout = bm25.arena_layout(tiers, None, None)
+    rows = torch.from_numpy(rng.integers(-1, 6, (4, 8)).astype(np.int32)).cuda()
+    rows[3] = -1
+    idfs = torch.ones((4, 8), device="cuda")
+    params = torch.tensor([[10.0, 1.0, -3.0e38]] * 4, device="cuda")
+    mask = torch.ones(32_768, dtype=torch.bool, device="cuda")
+    for k, with_counts in ((20, False), (20, True), (1024, True), (1, False)):
+        _, _, part, cut = bm25.launch_program(layout, (4, 4), mask, rows, idfs, params, with_counts, True, k)
+        top_s, top_ic, match = bm25.merge_program_cuts(cut, part, k)
+        want_s, want_ic = bm25.merge_tile_cuts(*cut, k)
+        _same_program_outputs((top_s, top_ic, match), (want_s, want_ic, part.sum(dim=1)))
+        final, counts, matched, _ = bm25.launch_program(layout, (4, 4), mask, rows, idfs, params, with_counts,
+                                                        True, 0)
+        _same_program_outputs((top_s, top_ic), bm25.topk_cut(final, counts, k))
+        assert torch.equal(match, matched) and int(match[3]) == 0
+
+
+@pytest.mark.parametrize("setting", ["default", "small"])
+def test_cuda_bm25_kernel_from_threads(monkeypatch, setting):
     """Programs of other table sizes launched from 8 threads at once (a
     node request's paragraph and document legs, the shards of
-    ``search_multi``): each answer equals its solo answer bit for bit."""
+    ``search_multi``): each answer equals its solo answer bit for bit, at
+    the default tiles and at tiles of 32 columns."""
     _need_card()
     from concurrent.futures import ThreadPoolExecutor
 
+    from nucliadb_tpu_torch.ops import bm25
     from nucliadb_tpu_torch.utils.platform import thread_stream
     from torch_test_helpers import bm25_arena_case, bm25_group_case, run_bm25_case
+
+    for const, value in _TILE_SETTINGS[setting].items():
+        monkeypatch.setattr(bm25, const, value)
 
     cases = [bm25_group_case(n) for n in ("hot_doc", "and_required", "dense_overlap")] + [
         bm25_arena_case(n) for n in ("hot_doc_and", "all_padding_or")]
@@ -402,13 +546,18 @@ def test_cuda_bm25_kernel_without_a_build_raises(monkeypatch):
     assert run_bm25_case(bm25_group_case("hot_doc"), "cpu")[0].shape[0] == 6  # the CPU takes the plain version
 
 
-def test_cuda_bm25_kernel_on_a_two_member_mesh(tmp_path, monkeypatch):
+@pytest.mark.parametrize("setting", ["default", "small"])
+def test_cuda_bm25_kernel_on_a_two_member_mesh(tmp_path, monkeypatch, setting):
     """The mesh's keyword programs on two members of the card: the text
     group (``bm25_groups`` a member) and the sharded engine
     (``_bm25_search`` a member) launch the kernel once a member and equal
     the plain version bit for bit, with ``torch.cuda.synchronize`` made to
-    raise."""
+    raise, at the default tiles and at tiles of 32 columns."""
     _need_card()
+    from nucliadb_tpu_torch.ops import bm25 as bm25_ops
+
+    for const, value in _TILE_SETTINGS[setting].items():
+        monkeypatch.setattr(bm25_ops, const, value)
     from unittest import mock
 
     from nucliadb_tpu_torch.index.text_engine import engine as teng

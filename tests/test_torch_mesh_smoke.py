@@ -37,9 +37,11 @@ def test_phase_mesh_rehearsal(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(slot_scan, "int8_scan_slots_resident2", counted)
     cfg = dict(chip_smoke.MESH_FULL, batches=(64, 256), kw_paragraphs=2_000, kw_requests=8, kw_engine_queries=4,
                hybrid_batch=16, node_resources=8, node_threshold=256, node_requests=4)
-    launches, bm25_launches, arena_err = chip_smoke.phase_mesh(torch, slot_scan, corpus, str(tmp_path), cfg, device="cpu")
+    launches, bm25_launches, merge_launches, arena_err = chip_smoke.phase_mesh(torch, slot_scan, corpus,
+                                                                             str(tmp_path), cfg, device="cpu")
     text = capsys.readouterr().out
-    assert launches == 8 and bm25_launches == 0 and arena_err is None  # the CPU runs the plain versions
+    # the CPU runs the plain versions
+    assert launches == 8 and bm25_launches == 0 and merge_launches == 0 and arena_err is None
     for line in ("mesh group: 4 shards of 5000 x 128", "mesh uneven group:", "mesh sharded index:",
                  "mesh keyword: 4 shards of 2000", "mesh serving: 8 resources", "mesh numbers:"):
         assert line in text, line

@@ -1,14 +1,15 @@
 """The port's measurement tools (``nucliadb_tpu_torch/tools``) run only on
 a card, but what they build is plain text: every design variant of the
-int8 slot scan must still apply to the kernel's source (a variant whose
-anchor no longer matches would time the wrong kernel), and the wgmma rate
-probe must generate a kernel for each case it times."""
+int8 slot scan and of the BM25 kernel must still apply to the kernel's
+source (a variant whose anchor no longer matches would time the wrong
+kernel), and the wgmma rate probe must generate a kernel for each case it
+times."""
 
 import re
 
 import pytest
 
-from nucliadb_tpu_torch.tools import slot_scan_variants, wgmma_rate
+from nucliadb_tpu_torch.tools import bm25_variants, slot_scan_variants, wgmma_rate
 from nucliadb_tpu_torch.utils import kernels
 
 _SOURCE = (kernels.CSRC / "int8_slot_scan.cu").read_text()
@@ -33,6 +34,24 @@ def test_phase_variants_export_their_reader():
         assert 'extern "C" int read_phases(' in _VARIANTS[name]
         assert len(re.findall(r"ph\[\d\] \+= tq - tp", _VARIANTS[name])) == 4
     assert len(slot_scan_variants.PHASE_NAMES) == 4
+
+
+_BM25_SOURCE = (kernels.CSRC / "bm25_program.cu").read_text()
+_BM25_VARIANTS = bm25_variants.variants(_BM25_SOURCE)
+
+
+@pytest.mark.parametrize("name", sorted(set(_BM25_VARIANTS) - {"base"}))
+def test_each_bm25_variant_changes_the_kernel_and_keeps_its_entries(name):
+    """Every variant of the BM25 kernel applies to its source, keeps both C
+    entries and balanced braces; the stamped one exports its reader and
+    stamps each phase boundary once."""
+    text = _BM25_VARIANTS[name]
+    assert _BM25_VARIANTS["base"] == _BM25_SOURCE and text != _BM25_SOURCE
+    assert 'extern "C" int bm25_program(' in text and 'extern "C" int bm25_merge(' in text
+    assert text.count("{") == text.count("}")
+    if name == "phases":
+        assert 'extern "C" int bm25_stamps(' in text
+        assert sorted(re.findall(r"STAMP\((\d)\);", text)) == ["0", "1", "2", "3", "4", "4", "5", "5", "5"]
 
 
 def test_wgmma_rate_source_has_every_case():
