@@ -89,11 +89,11 @@ line:
      ties), and a batch of high-df AND pairs the cost model sends to the
      device;
    - on the device route every dispatch launches the BM25 program's hand
-     kernel, ``csrc/bm25_program.cu``, once and its merge kernel at most
-     once (``ops.bm25.LAUNCHES``); the
-     launches a device-route request and the BM25 program's share of them
-     (``torch.profiler``), the 64 threaded requests against the same one
-     after another;
+     kernel, ``csrc/bm25_program.cu``, once and its merge kernel once
+     (``ops.bm25.LAUNCHES``); the launches a device-route request and the
+     BM25 program's share of them (``torch.profiler``, no fewer than the
+     wrappers counted; at most 9 a dispatch), the 64 threaded requests
+     against the same one after another;
    - the kernel against its plain version at the OR 512, AND 512 and single
      request shapes, bit for bit (the rows mode's final rows, count rows,
      bitmaps or counts, and the cut path's cuts with their counts, bitmaps
@@ -102,8 +102,8 @@ line:
      kernel's time on the cut path and in rows mode, the merge's, the plain
      program's, the whole program on the card, one ``index_add_`` of the
      batch's lanes as a yardstick (the scatter alone), the program's bound
-     from this run's lanes and a row-keeping design's bound beside it, the
-     tile width, tiles a row and the kernels' launches a dispatch;
+     from this run's distinct rows, the tile width, tiles a row and the
+     kernels' launches a dispatch;
    - a breakdown of the device program by stage (CUDA events) with the
      scatter's deterministic and atomic forms, host planning and hits, and
      whole batches on both routes;
@@ -1505,7 +1505,7 @@ def phase_mesh(torch, slot_scan, corpus, tmp, cfg, device="cuda"):
         tg_merges = bm25.LAUNCHES.get("merge", 0)
         # ----
         check(dispatched == members * len(reqs), f"the text group dispatched {dispatched} programs")
-        check(tg_launches == (dispatched if device == "cuda" else 0) and tg_merges <= tg_launches,
+        check(tg_launches == (dispatched if device == "cuda" else 0) and tg_merges == tg_launches,
               f"the text group launched bm25_program {tg_launches} times, its merge {tg_merges}")
         for req, got in zip(reqs, grouped):
             for p, g in zip(psearchers, got):
@@ -1896,11 +1896,13 @@ BM25_DISPATCH_KEYS = ("single", "batch", "arena", "arena_batch")
 
 def bm25_kernel_served(counts, what, device) -> None:
     """On the card, every BM25 dispatch of a counted path launched
-    ``csrc/bm25_program.cu`` once (``counts`` holds ``bm25.DISPATCHES`` and
-    ``bm25.LAUNCHES``); on the CPU the plain version counts no launch."""
+    ``csrc/bm25_program.cu`` and its merge once each (``counts`` holds
+    ``bm25.DISPATCHES`` and ``bm25.LAUNCHES``); on the CPU the plain version
+    counts no launch."""
     dispatched = sum(counts.get(key, 0) for key in BM25_DISPATCH_KEYS)
     launched, merged = counts.get("program", 0), counts.get("merge", 0)
-    check(launched == (dispatched if device == "cuda" else 0) and merged <= launched,
+    # every dispatch of these paths cuts 1 <= k <= KMAX: one merge a launch
+    check(launched == (dispatched if device == "cuda" else 0) and merged == launched,
           f"{what}: {dispatched} BM25 dispatches, {launched} launches of bm25_program, {merged} of its merge")
 
 
@@ -2045,6 +2047,7 @@ def phase_keyword(torch, tmp, cfg, device="cuda"):
             engine._group_tensors(), engine._offsets(), engine.base_mask_device(), *single_in, KW_TOP_K, caps,
             tuple(engine._tier_group_counts()), False, layout=engine.program_layout(),
         ))
+        check(program <= 9, f"a BM25 dispatch put {program} launches on the card (PR 14's program took 9)")
     print(
         f"keyword launches: {per_request} a device-route request (kernels, copies and fills on the card, "
         f"torch.profiler, mean of 8 ParagraphSearcher requests), {program} of them the BM25 program's (a single "
@@ -2232,52 +2235,81 @@ def kw_breakdown(torch, para, or_q, and_q, tier, device):
     return f"breakdown keyword (ms, batch {n_q}, {engine.n_docs} paragraphs): {json.dumps(out)}"
 
 
-def device_launches(torch, fn, per: int = 1):
-    """Kernels, copies and fills that ``fn()`` put on the card, counted by
-    ``torch.profiler`` (CUDA activity), after one warm-up call, over
-    ``per``. A profile that saw no device event at all is taken again after
-    a pause, at most six times; the card's profiler has come back empty six
-    times in a row within one process while ``fn()`` ran its kernels (the
-    launch counters saw them), so the count is then None: not measured."""
+PROFILE_MARGIN_S = 0.25  # host time a profile is open before and after the profiled call
+PROFILE_TAKES = 3  # profiles taken at most while one comes back short of device events
+
+
+def profiled(torch, fn):
+    """``fn()`` under ``torch.profiler`` (CUDA activity), after one warm-up
+    call, the profile opened ``PROFILE_MARGIN_S`` before the call and
+    closed as long after its last kernel. Kineto keeps only the device
+    events whose timestamps fall inside the profile's host-clock window,
+    and on the H100 a profile of a few short kernels has come back short
+    of them: with no margin now and then, and with a 5 ms margin a single
+    query's BM25 program (2 kernels) once empty in a run of this script. A
+    take that holds no device event, or fewer than the hand kernels the
+    port's wrappers launched in it, is taken again, at most
+    ``PROFILE_TAKES`` times; the check fails if every take is short.
+    Returns the complete take's events summed by key and the launches the
+    wrappers counted in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from nucliadb_tpu_torch.ops import binary_scan, bm25, slot_scan
+
+    def wrapped():
+        return sum(c.total() for c in (slot_scan.LAUNCHES, binary_scan.LAUNCHES, bm25.LAUNCHES))
+
     fn()
     torch.cuda.synchronize()
-    for attempt in range(6):
-        if attempt:
-            time.sleep(0.5)
+    for _ in range(PROFILE_TAKES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            before = wrapped()
             fn()
             torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-        if n:
-            return n / per
-    print("note: torch.profiler saw no device event in six profiles: launches not measured", flush=True)
-    return None
+            launched = wrapped() - before
+            time.sleep(PROFILE_MARGIN_S)
+        events = prof.key_averages()
+        n = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+        if n > 0 and n >= launched:
+            return events, launched
+    check(False, f"torch.profiler came back short in each of {PROFILE_TAKES} profiles: the last saw {n} device "
+                 f"events where the port's kernel wrappers launched {launched}")
+
+
+def device_launches(torch, fn, per: int = 1) -> float:
+    """Kernels, copies and fills that ``fn()`` put on the card, counted by
+    ``torch.profiler`` (``profiled``: no fewer than the hand kernels the
+    wrappers launched), over ``per``."""
+    from torch.autograd import DeviceType
+
+    events, _ = profiled(torch, fn)
+    return sum(e.count for e in events if e.device_type == DeviceType.CUDA) / per
 
 
 def bm25_work(bm25, layout, caps, rows) -> dict:
-    """What this run's data asks of the BM25 program: the lanes of every
-    scheduled posting row, the valid ones among them (a doc, not padding),
-    and the bytes of the scheduled dense slots' windows (1 B a column) and
-    of each scheduled dense block's dl window (4 B a column)."""
+    """What this run's data asks of the BM25 program, each input counted
+    once a batch however many of its queries schedule it: the lanes of
+    every distinct scheduled posting row (a record's row), the valid ones
+    among them (a doc, not padding), and the bytes of each distinct
+    scheduled dense row's window (1 B a column) and of each scheduled dense
+    block's dl window (4 B a column)."""
     starts = np.concatenate([[0], np.cumsum(caps)])
     lanes = valid = dense_bytes = 0
     for rec in layout.records:
         block = rec.tensors[0]
         n_rows, width = block.shape
         lo, hi = int(starts[rec.slot]), int(starts[rec.slot + 1])
-        for j in range(lo, hi):
-            sel = rows[:, j].long()
-            ok = (sel >= 0) & (sel < n_rows)
-            if rec.kind == bm25.POSTING:
-                lanes += int(ok.sum()) * width
-                valid += int(((block[sel.clamp(0, n_rows - 1)] >= 0) & ok[:, None]).sum())
-            else:
-                dense_bytes += int(ok.sum()) * width
-        if rec.kind != bm25.POSTING and hi > lo:
-            dense_bytes += 4 * width
+        if hi == lo:
+            continue
+        sel = rows[:, lo:hi].reshape(-1).long()
+        sel = sel[(sel >= 0) & (sel < n_rows)].unique()
+        if rec.kind == bm25.POSTING:
+            lanes += int(sel.numel()) * width
+            valid += int((block[sel] >= 0).sum())
+        else:
+            dense_bytes += int(sel.numel()) * width + 4 * width
     return {"lanes": lanes, "valid_lanes": valid, "dense_bytes": dense_bytes}
 
 
@@ -2285,11 +2317,11 @@ def bm25_bound_ms(work, masks, rows, with_counts: bool, count_only: bool, k: int
     """The least time of the BM25 program's own work on an H100, from this
     run's data (``bm25_work``), whatever implements it: its bytes at the
     HBM rate (its ~10 f32 operations a valid lane are far below the f32
-    rate). Read once: the doc id of every lane of a scheduled posting row
-    (4 B), tf and dl of each valid lane (8 B), the dense windows, the mask,
-    rows, idfs and params; written once: the cut (a score, an id and a
-    count: 20 B an entry) and the matched bitmap (1 B a column) or the
-    match counts (8 B a query). ``rows_mode`` adds final (4 B a column)
+    rate). Read once: the doc id of every lane of a distinct scheduled
+    posting row (4 B), tf and dl of each of its valid lanes (8 B), the
+    distinct dense windows, the mask, rows, idfs and params; written once:
+    the cut (a score, an id and a count: 20 B an entry) and the matched
+    bitmap (1 B a column) or the match counts (8 B a query). ``rows_mode`` adds final (4 B a column)
     and, with counts, the count row (4 B a column): the rows mode's outputs.
     Returns (ms, bytes)."""
     n_q, n_slots = rows.shape
@@ -2299,25 +2331,6 @@ def bm25_bound_ms(work, masks, rows, with_counts: bool, count_only: bool, k: int
     if rows_mode:
         total += n_q * L * (8 if with_counts else 4)
     return total / HBM_BYTES_PER_S * 1e3, total
-
-
-def bm25_row_bound_ms(work, masks, rows, with_counts: bool, count_only: bool, k: int, sm_count: int) -> float:
-    """The bound of a kernel that keeps the [Q, L] score rows in device
-    memory, on the same run's data: the bytes of ``bm25_bound_ms`` less the
-    cut and bitmap outputs, plus a 32 B sector for each valid lane's random
-    score update (and count update), the rows written final (and the count
-    row), the bitmap unless ``count_only``, and 12 B an entry of each row
-    chunk's cut (``2 * sm_count // Q`` chunks of at least 8192 columns).
-    Kept to restate that design's shares against the program's bound."""
-    n_q, n_slots = rows.shape
-    L = masks.shape[-1]
-    n_chunks = max(1, min(max(1, (2 * sm_count) // n_q), -(-L // 8192)))
-    n_chunks = -(-L // -(-L // n_chunks))
-    sector = 32 * (2 if with_counts else 1)
-    total = (4 * work["lanes"] + (8 + sector) * work["valid_lanes"] + work["dense_bytes"] + masks.numel()
-             + 8 * n_q * n_slots + 12 * n_q + n_q * L * (4 + (4 if with_counts else 0) + (0 if count_only else 1))
-             + 12 * n_q * n_chunks * k)
-    return total / HBM_BYTES_PER_S * 1e3
 
 
 def bm25_merge_bound_ms(n_q, n_tiles, k, count_only) -> float:
@@ -2405,10 +2418,8 @@ def phase_bm25_kernel(torch, engine, or_q, and_q, single_q) -> dict:
     program on the card (the kernel and the merge), and a yardstick: one
     ``index_add_`` of all of the batch's lanes (the plain version's,
     padding sent to the sink column) into [Q, L + 1] (atomics in no fixed
-    order: the scatter alone). Bounds from this run's data: the program's
-    own (``bm25_bound_ms``) and a row-keeping design's
-    (``bm25_row_bound_ms``, printed once a shape). Prints one line a shape and
-    returns the numbers."""
+    order: the scatter alone). The program's bound from this run's data
+    (``bm25_bound_ms``). Prints one line a shape and returns the numbers."""
     from nucliadb_tpu_torch.ops import bm25
 
     t0 = time.perf_counter()
@@ -2468,7 +2479,6 @@ def phase_bm25_kernel(torch, engine, or_q, and_q, single_q) -> dict:
         work = bm25_work(bm25, layout, caps, rows)
         row["bound_ms"], row["bytes"] = bm25_bound_ms(work, mask, rows, with_counts, count_only, k)
         row["rows_bound_ms"] = bm25_bound_ms(work, mask, rows, with_counts, count_only, 0, rows_mode=True)[0]
-        row["row_design_bound_ms"] = bm25_row_bound_ms(work, mask, rows, with_counts, count_only, k, sms)
         row["merge_bound_ms"] = bm25_merge_bound_ms(n_q, n_tiles, k, count_only)
         row["share"] = row["bound_ms"] / row["ms"]
         row["program_share"] = row["bound_ms"] / row["program_ms"]
@@ -2607,15 +2617,9 @@ def node_observed(family: str, kinds) -> dict:
 
 def device_busy_ms(torch, fn) -> float:
     """Device ms that the kernels and copies of ``fn()`` took, summed by
-    ``torch.profiler`` (CUDA activity only)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    ``torch.profiler`` (``profiled``, CUDA activity only)."""
+    events, _ = profiled(torch, fn)
+    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
     check(total_us > 0, "torch.profiler saw no device time")
     return total_us / 1e3
 
@@ -5408,7 +5412,7 @@ def main() -> None:
         "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"], "bound_by": "bytes",
         # one index_add_ of all of the batch's lanes: the scatter alone
         "library_ms": bm["library_ms"], "share": bm["bound_ms"] / bm["ms"],
-        "tile_cols": bm["tile_cols"], "blocks_a_row": bm["blocks_a_row"], "row_design_bound_ms": bm["row_design_bound_ms"],
+        "tile_cols": bm["tile_cols"], "blocks_a_row": bm["blocks_a_row"],
     })
     # its merge of a row's tile cuts (the second launch of a dispatch), at
     # the OR batch of 512 on the kernel's own tile cuts; torch.topk of the

@@ -119,6 +119,32 @@ constexpr size_t WORK_BYTES = BINS * 4 + KMAX * 8;
 static_assert(WARPS * 32 * 8 + WARPS * WARP_BUF * 8 <= WORK_BYTES, "the warps' buffers fit the work area");
 constexpr size_t MAX_SMEM = (size_t)MAX_TILE * 6 + WORK_BYTES;  // scores, counts, work (MAX_TILE * 6 is a multiple of 16)
 
+// Phase stamps (a build with -DBM25_STAMPS, tools/bm25_variants): the first
+// thread of each of the first STAMP_BLOCKS blocks, in (query, tile) order,
+// keeps clock64() at the phase boundaries 0-5 (set-up, postings, dense
+// blocks, epilogue, cut, end) and %globaltimer at 0 and 5, read back by
+// bm25_stamps(). Without the define a stamp is nothing.
+#ifdef BM25_STAMPS
+constexpr long long STAMP_BLOCKS = 65536;
+__device__ unsigned long long g_stamps[STAMP_BLOCKS * 8];
+#define STAMP(j)                                                            \
+  if (threadIdx.x == 0) {                                                   \
+    const long long sb_ = (long long)blockIdx.y * gridDim.x + blockIdx.x;   \
+    if (sb_ < STAMP_BLOCKS) {                                               \
+      unsigned long long t_;                                                \
+      if ((j) == 0 || (j) == 5) {                                           \
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));              \
+        g_stamps[sb_ * 8 + 6 + ((j) == 5)] = t_;                            \
+      }                                                                     \
+      g_stamps[sb_ * 8 + (j)] = clock64();                                  \
+    }                                                                       \
+  }
+#else
+#define STAMP(j) \
+  do {           \
+  } while (0)
+#endif
+
 // One record of the program table, 64 bytes (ops/bm25.py:REC_DTYPE).
 struct Rec {
   const void* p0;   // posting: docs i32 [T, W]; dense: tfs u8 [R, width]
@@ -679,6 +705,7 @@ __global__ void __launch_bounds__(THREADS, 3) bm25_program_kernel(
   float* s_cand_s = reinterpret_cast<float*>(work + BINS * 4);       // [KMAX]
   unsigned* s_cand_t = reinterpret_cast<unsigned*>(s_cand_s + KMAX);  // [KMAX]
 
+  STAMP(0);
   for (int i = tid; i < tile_cols; i += THREADS) s_score[i] = 0.0f;
   if (s_cnt) {
     for (int i = tid; i < tile_cols; i += THREADS) s_cnt[i] = 0;
@@ -688,6 +715,7 @@ __global__ void __launch_bounds__(THREADS, 3) bm25_program_kernel(
   const int* qrows = rows + (long long)q * S;
   const float* qidfs = idfs + (long long)q * S;
 
+  STAMP(1);
   // ---- phase B: the posting lanes in the tile, slot order ----------------
   const int post_end = n_post > 0 ? tab.recs[n_post - 1].hi : 0;
   const long long g_lo = c_lo / dir_cols;                    // the tile's first directory boundary
@@ -822,6 +850,7 @@ __global__ void __launch_bounds__(THREADS, 3) bm25_program_kernel(
   }
   __syncthreads();
 
+  STAMP(2);
   // ---- phase C: the dense blocks ------------------------------------------
   const bool vec_tile = (tile_cols & 3) == 0;
   for (int r = n_post; r < n_post + n_dense; ++r) {
@@ -868,6 +897,7 @@ __global__ void __launch_bounds__(THREADS, 3) bm25_program_kernel(
     }
     __syncthreads();  // the next record's slots overwrite these; the epilogue reads the scores
   }
+  STAMP(3);
   // ---- the epilogue: final, the bitmap or match count, the warps' best ----
   const float required = params[q * 3 + 1];
   const float req1 = required < 1.0f ? 1.0f : required;  // clamp_min(1.0), NaN kept
@@ -976,7 +1006,11 @@ __global__ void __launch_bounds__(THREADS, 3) bm25_program_kernel(
     const long long total = block_sum(n_matched, sh.red);
     if (tid == 0) match_part[(long long)q * gridDim.x + tile] = total;
   }
-  if (!cut_s) return;
+  STAMP(4);
+  if (!cut_s) {
+    STAMP(5);
+    return;
+  }
 
   // ---- phase D: the tile's cut ------------------------------------------
   const long long b = (long long)q * gridDim.x + tile;
@@ -989,12 +1023,14 @@ __global__ void __launch_bounds__(THREADS, 3) bm25_program_kernel(
     // the warps' best 32 merged in a tree: warp 0 holds the tile's
     block_top32(top.s, top.t, reinterpret_cast<float*>(s_hist), s_hist + WARPS * 32);
     if (tid < 32) write_top32(src, k, top.s, top.t, out_s, out_i, out_c, pad);
+    STAMP(5);
     return;
   }
   const long long kept = block_sum(n_kept, sh.red);  // also orders the epilogue's writes before the select
   for (int i = tid; i < BINS; i += THREADS) s_hist[i] = 0;
   __syncthreads();
   block_cut(src, n_cols, bits_for(tile_cols), k, kept, s_hist, s_cand_s, s_cand_t, &sh, out_s, out_i, out_c, pad);
+  STAMP(5);
 }
 
 // One block a row: the row's cut from its n_tiles tiles' cuts (each in
@@ -1082,6 +1118,13 @@ struct Launch {
 };
 
 }  // namespace
+
+#ifdef BM25_STAMPS
+// The phase stamps of the last launch: STAMP_BLOCKS * 8 u64 into host ``out``.
+extern "C" int bm25_stamps(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
+}
+#endif
 
 // Returns 0, or the CUDA error of the launch. ``recs`` is a host array of
 // n_recs records, the n_post posting records first, copied into the launch's

@@ -59,6 +59,7 @@ version). ``LAUNCHES`` counts the kernels' launches (``"program"``,
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -324,7 +325,8 @@ class Layout:
         self.slot = np.array([rec.slot for rec in records], np.int64)
         self.device = None
         self.end = 0  # the score columns the dense windows need
-        self._tables = {}  # (caps, L) -> table
+        self._tables = {}  # (caps, L) -> table; read by any thread, written under _tables_lock
+        self._tables_lock = threading.Lock()
         for i, rec in enumerate(records):
             types = _POSTING_TYPES if rec.kind == POSTING else _DENSE_TYPES
             if len(rec.tensors) != len(types):
@@ -368,15 +370,18 @@ class Layout:
         this layout's records, then ``overlay``'s dense ones, each with its
         slot columns; records no slot is scheduled for are left out. Kept
         for the last ``_TABLES_KEPT`` ``caps`` without an overlay (a
-        request's caps repeat)."""
+        request's caps repeat, and building a table costs more host time
+        than a single query's kernel takes on the card)."""
+        if overlay is not None:
+            return self._table(caps, L, overlay)
         key = (tuple(int(c) for c in caps), int(L))
-        if overlay is None and key in self._tables:
-            return self._tables[key]
-        out = self._table(caps, L, overlay)
-        if overlay is None:
-            if len(self._tables) >= _TABLES_KEPT:
-                self._tables.pop(next(iter(self._tables)))
-            self._tables[key] = out
+        out = self._tables.get(key)
+        if out is None:
+            out = self._table(caps, L, None)
+            with self._tables_lock:
+                if len(self._tables) >= _TABLES_KEPT:
+                    self._tables.pop(next(iter(self._tables)), None)
+                self._tables[key] = out
         return out
 
     def _table(self, caps, L: int, overlay: "Layout | None") -> tuple[np.ndarray, int]:

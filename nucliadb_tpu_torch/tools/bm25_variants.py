@@ -1,43 +1,26 @@
-"""Time design variants of the BM25 program kernel on one card.
+"""Time the BM25 program kernel on one card, and where a block's time goes.
 
-Each variant is ``csrc/bm25_program.cu`` with text substitutions, built
-with the port's nvcc flags into ``build/kernels/variants/`` and launched
-through ``ops/bm25.py`` (the variant's library stands in for the kernel's
-during its launches). The shapes are the keyword phase's: bench_suite.py
-config 3 at 1M paragraphs built by ``chip_smoke.KwCorpus`` (about a minute
-of host time), its OR batch of 512, its AND batch of 512 and a single
-request. Variants:
-
-- ``base``: the kernel as it is (its cut path, and its rows mode);
-- ``phases``: the kernel with ``clock64`` and ``%globaltimer`` stamps by
-  each block's first thread at its phase boundaries (set-up, postings,
-  dense blocks, epilogue, cut); printed as the clocks a block spends in
-  each phase (mean over the blocks), a block's ns, the kernel's span and
-  the blocks in flight on average (the sum of the blocks' ns over the
-  span);
-- ``no_cut``: the tile's cut skipped (no cut is written: the time without
-  phase D);
-- ``no_postings``: the posting phase skipped (wrong scores: the time
-  without phase B);
-- ``no_dense``: the dense blocks skipped (wrong scores: the time without
-  phase C);
-- ``no_apply``: the posting lanes loaded and weighed but not added (wrong
-  scores: the time of the slot-ordered adds and their barriers);
-- ``hist_atomic``: the select's histogram counts one shared atomic a lane
-  instead of one a distinct bin of a warp (``__match_any_sync``);
-- ``four_blocks``: ``__launch_bounds__(THREADS, 4)``: at most 64 registers
-  a thread, so four blocks fit an SM where shared memory allows.
+``csrc/bm25_program.cu`` is built twice with the port's nvcc flags into
+``build/kernels/variants/``: as it is (``base``), and with
+``-DBM25_STAMPS`` (``phases``: each block's first thread keeps ``clock64``
+and ``%globaltimer`` stamps at its phase boundaries: set-up, postings,
+dense blocks, epilogue, cut). Each is launched through ``ops/bm25.py``
+(the build's library stands in for the kernel's during its launches). The
+shapes are the keyword phase's: bench_suite.py config 3 at 1M paragraphs
+built by ``chip_smoke.KwCorpus`` (about a minute of host time), its OR
+batch of 512, its AND batch of 512 and a single request.
 
 The base kernel is also timed at other tile widths (``tiles``: the
 ``TILE_COLS`` and ``MIN_TILE_COLS`` of ``ops/bm25.py`` set for the call).
-Run from the root of a checkout, naming the variants to time (all when
-none is named; ``base`` always runs):
+Run from the root of a checkout:
 
-    python3 -m nucliadb_tpu_torch.tools.bm25_variants [variant ...]
+    python3 -m nucliadb_tpu_torch.tools.bm25_variants [tiles]
 
 It prints the card's name and power limit, then one JSON line per
-(variant, shape) with the mean ms of two rounds taken in turns, and one
-per shape with the phases.
+(build, shape) with the mean ms of two rounds taken in turns, and per
+shape the clocks a block spends in each phase (mean over the blocks), a
+block's ns, the kernel's span and the blocks in flight on average (the sum
+of the blocks' ns over the span), on the cut path and in rows mode.
 """
 
 from __future__ import annotations
@@ -55,82 +38,25 @@ import torch
 from ..ops import bm25
 from ..utils import kernels
 
-STAMP_BLOCKS = 65536  # blocks whose stamps are kept (the first in (query, tile) order)
-_STAMP_DEFS = """
-__device__ unsigned long long g_stamps[STAMP_BLOCKS * 8];
-#define STAMP(j)                                                                       \\
-  if (threadIdx.x == 0) {                                                              \\
-    const long long sb_ = (long long)blockIdx.y * gridDim.x + blockIdx.x;              \\
-    if (sb_ < STAMP_BLOCKS) {                                                          \\
-      unsigned long long t_;                                                           \\
-      if ((j) == 0 || (j) == 5) {                                                      \\
-        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                         \\
-        g_stamps[sb_ * 8 + 6 + ((j) == 5)] = t_;                                       \\
-      }                                                                                \\
-      g_stamps[sb_ * 8 + (j)] = clock64();                                             \\
-    }                                                                                  \\
-  }
-"""
-_PHASES = [
-    ("namespace {\n", "namespace {\n\nconstexpr long long STAMP_BLOCKS = %d;\n%s" % (STAMP_BLOCKS, _STAMP_DEFS)),
-    ("  for (int i = tid; i < tile_cols; i += THREADS) s_score[i] = 0.0f;\n",
-     "  STAMP(0);\n  for (int i = tid; i < tile_cols; i += THREADS) s_score[i] = 0.0f;\n"),
-    ("  // ---- phase B: the posting lanes in the tile", "  STAMP(1);\n  // ---- phase B: the posting lanes in the tile"),
-    ("  // ---- phase C: the dense blocks", "  STAMP(2);\n  // ---- phase C: the dense blocks"),
-    ("  // ---- the epilogue: final", "  STAMP(3);\n  // ---- the epilogue: final"),
-    ("  if (!cut_s) return;\n", "  if (!cut_s) {\n    STAMP(4);\n    STAMP(5);\n    return;\n  }\n"),
-    ("  // ---- phase D: the tile's cut", "  STAMP(4);\n  // ---- phase D: the tile's cut"),
-    ("    if (tid < 32) write_top32(src, k, top.s, top.t, out_s, out_i, out_c, pad);\n    return;\n",
-     "    if (tid < 32) write_top32(src, k, top.s, top.t, out_s, out_i, out_c, pad);\n    STAMP(5);\n    return;\n"),
-    ("out_s, out_i, out_c, pad);\n}\n", "out_s, out_i, out_c, pad);\n  STAMP(5);\n}\n"),
-    ("}  // namespace\n", "}  // namespace\n\nextern \"C\" int bm25_stamps(void* out) {\n"
-     "  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));\n}\n"),
-]
+STAMP_BLOCKS = 65536  # blocks whose stamps the kernel keeps (bm25_program.cu)
 _PHASE_NAMES = ("setup", "postings", "dense", "epilogue", "cut")
+BUILDS = {"base": (), "phases": ("-DBM25_STAMPS",)}  # each build's defines
 
 
-def _substitute(src: str, pairs) -> str:
-    for old, new in pairs:
-        if old not in src:
-            raise RuntimeError(f"variant anchor not found: {old[:60]!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def variants(src: str) -> dict[str, str]:
-    """Each variant's source text."""
-    return {
-        "base": src,
-        "phases": _substitute(src, _PHASES),
-        "no_cut": _substitute(src, [("  // ---- phase D: the tile's cut", "  return;\n  // ---- phase D: the tile's cut")]),
-        "no_postings": _substitute(src, [("for (int pb = 0; pb < post_end; pb += PIECE)", "for (int pb = 0; pb < 0; pb += PIECE)")]),
-        "no_dense": _substitute(src, [("for (int r = n_post; r < n_post + n_dense; ++r)", "for (int r = n_post; r < n_post; ++r)")]),
-        "no_apply": _substitute(src, [("for (int b0 = first; b0 <= last; b0 += 32)", "for (int b0 = first; b0 < first; b0 += 32)")]),
-        "four_blocks": _substitute(src, [("__launch_bounds__(THREADS, 3) bm25_program_kernel",
-                                          "__launch_bounds__(THREADS, 4) bm25_program_kernel")]),
-        "hist_atomic": _substitute(src, [(
-            "  const unsigned peers = __match_any_sync(__activemask(), bin);\n"
-            "  if ((threadIdx.x & 31) == (unsigned)(__ffs(peers) - 1)) atomicAdd(&hist[bin], (unsigned)__popc(peers));\n",
-            "  atomicAdd(&hist[bin], 1u);\n")]),
-    }
-
-
-def _build_all(texts: dict[str, str]) -> dict:
-    """Each variant's library, all nvcc builds started together."""
+def _build_all() -> dict:
+    """Each build's library, the nvcc runs started together."""
     out_dir = kernels.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in texts.items():
-        cu = out_dir / f"bm25_{name}.cu"
-        cu.write_text(text)
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
-               str(out_dir / f"libbm25_{name}.so"), str(cu)]
+    for name, defines in BUILDS.items():
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *defines, "-o", str(out_dir / f"libbm25_{name}.so"),
+               str(kernels.CSRC / "bm25_program.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for build {name}:\n{log}")
         regs = sorted({line.strip() for line in log.splitlines() if "registers" in line})
         print(f"{name}: {regs}", flush=True)
         libs[name] = ctypes.CDLL(str(out_dir / f"libbm25_{name}.so"))
@@ -211,12 +137,10 @@ def main() -> None:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
-    texts = variants((kernels.CSRC / "bm25_program.cu").read_text())
-    wanted = [a for a in sys.argv[1:] if a != "tiles"] or list(texts)
-    unknown = set(wanted) - set(texts)
+    unknown = set(sys.argv[1:]) - {"tiles"}
     if unknown:
-        raise SystemExit(f"bm25_variants: unknown variants {sorted(unknown)}")
-    libs = _build_all({name: texts[name] for name in texts if name == "base" or name in wanted})
+        raise SystemExit(f"bm25_variants: unknown arguments {sorted(unknown)}")
+    libs = _build_all()
     with tempfile.TemporaryDirectory() as tmp:
         corpus = chip_smoke.KwCorpus(tmp, chip_smoke.KW_FULL)
         engine = ParagraphSearcher(corpus.first, device="cuda").engine
@@ -246,7 +170,7 @@ def main() -> None:
                             times.setdefault(("base rows mode", name), []).append(
                                 _ms(lambda: launch(k=0), reps))
         for (vname, name), ms in times.items():
-            print(json.dumps({"variant": vname, "shape": name, "ms": sum(ms) / len(ms), "rounds": ms}), flush=True)
+            print(json.dumps({"build": vname, "shape": name, "ms": sum(ms) / len(ms), "rounds": ms}), flush=True)
         for name, k, caps, rows, idfs, params, with_counts, count_only in shapes:
             with _library(libs["base"]):
                 got = bm25.run_kernel(layout, caps, mask, rows, idfs, params, k, with_counts, count_only)
@@ -254,12 +178,11 @@ def main() -> None:
                                    w.view(torch.int32) if w.dtype == torch.float32 else w)
                        for g, w in zip(got, base_out[name]))
             print(json.dumps({"shape": name, "deterministic": same}), flush=True)
-            if "phases" in libs:
-                n_blocks = rows.shape[0] * bm25.tiling(rows.shape[0], L, sms, layout.dir_cols)[1]
-                for mode, kk in (("cut", k), ("rows", 0)):
-                    ph = _phases(libs["phases"], lambda kk=kk: bm25.launch_program(
-                        layout, caps, mask, rows, idfs, params, with_counts, count_only, kk), n_blocks)
-                    print(json.dumps({"phases": name, "mode": mode, **ph}), flush=True)
+            n_blocks = rows.shape[0] * bm25.tiling(rows.shape[0], L, sms, layout.dir_cols)[1]
+            for mode, kk in (("cut", k), ("rows", 0)):
+                ph = _phases(libs["phases"], lambda kk=kk: bm25.launch_program(
+                    layout, caps, mask, rows, idfs, params, with_counts, count_only, kk), n_blocks)
+                print(json.dumps({"phases": name, "mode": mode, **ph}), flush=True)
         if "tiles" in sys.argv[1:]:
             for tile_cols, min_cols in ((4096, 2048), (16384, 2048), (8192, 4096), (8192, 8192)):
                 with _tiles(tile_cols, min_cols), _library(libs["base"]):

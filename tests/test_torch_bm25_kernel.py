@@ -246,6 +246,43 @@ def test_tiling(n_q, L, sms, dir_cols):
 # ---------------------------------------------------------------------------
 
 
+def _distinct_work(case, rows):
+    """numpy: the lanes of each distinct scheduled row of every posting
+    tier, the valid ones, and each distinct dense row's window (1 B a
+    column) plus its group's dl window (4 B a column), straight from the
+    case's groups."""
+    starts = np.concatenate([[0], np.cumsum(case["caps"])])
+    posting = [tier for tiers, _, _ in case["groups"] for tier in tiers]
+    dense = [(block, dl) for _, block, dl in case["groups"]]
+    lanes = valid = dense_bytes = 0
+    for slot, block in enumerate([docs for docs, _, _ in posting] + [block for block, _ in dense]):
+        sel = rows[:, starts[slot] : starts[slot + 1]].ravel()
+        sel = np.unique(sel[(sel >= 0) & (sel < block.shape[0])])
+        if slot < len(posting):
+            lanes += sel.size * block.shape[1]
+            valid += int((block[sel] >= 0).sum())
+        elif starts[slot + 1] > starts[slot]:
+            dense_bytes += sel.size * block.shape[1] + 4 * block.shape[1]
+    return {"lanes": lanes, "valid_lanes": valid, "dense_bytes": dense_bytes}
+
+
+@pytest.mark.parametrize("name", sorted(BM25_GROUP_CASES))
+def test_bound_reads_each_scheduled_row_once(name):
+    """``chip_smoke.bm25_work`` (the BM25 program's bound) counts each
+    distinct scheduled posting or dense row once a batch: the case's numpy
+    count, and the same for the batch sent twice over."""
+    import chip_smoke
+
+    case = bm25_group_case(name)
+    x = bm25_torch_inputs(case, "cpu")
+    layout = bm25.group_layout(x["groups"], x["offsets"])
+    want = _distinct_work(case, case["rows"])
+    assert want["lanes"] > 0
+    assert chip_smoke.bm25_work(bm25, layout, case["caps"], x["rows"]) == want
+    twice = torch.cat([x["rows"], x["rows"]])
+    assert chip_smoke.bm25_work(bm25, layout, case["caps"], twice) == want
+
+
 def _posting_tier(rng, n_rows, width, n_docs):
     docs = np.full((n_rows, width), -1, np.int32)
     for r in range(n_rows):
@@ -298,6 +335,40 @@ def test_layout_builds_directories_for_wide_tiers(monkeypatch):
         assert torch.equal(layout.directories[i], directory)
         assert (row["dir"], row["dir_t0"], row["dir_n"]) == (layout.directories[i].data_ptr(), t0, n)
     assert sum(d is not None for d in layout.directories) == 6  # widths 8 and 16 of three groups
+
+
+def test_layout_tables_from_threads_past_the_kept_count():
+    """``Layout.table`` from 8 threads at once over 3x ``_TABLES_KEPT``
+    distinct caps (its cache evicting while others read): every table
+    equals one built afresh, and the cache keeps at most ``_TABLES_KEPT``."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    case = bm25_group_case("dense_overlap")
+    x = bm25_torch_inputs(case, "cpu")
+    layout = bm25.group_layout(x["groups"], x["offsets"])
+    L = case["masks"].shape[-1]
+    rng = np.random.default_rng(5)
+    all_caps = {tuple(int(c) for c in rng.integers(0, 4, len(case["caps"]))) for _ in range(4 * bm25._TABLES_KEPT)}
+    all_caps = sorted(all_caps)[: 3 * bm25._TABLES_KEPT]
+    assert len(all_caps) == 3 * bm25._TABLES_KEPT
+
+    def run(t):
+        out = []
+        for caps in all_caps[t::2] + all_caps[t::3]:
+            got, n_post = layout.table(caps, L)
+            want, want_post = layout._table(caps, L, None)
+            out.append(n_post == want_post and got.tobytes() == want.tobytes())
+        return all(out)
+
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # a thread switch between any two bytecodes
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            assert all(pool.map(run, range(8)))
+    finally:
+        sys.setswitchinterval(saved)
+    assert len(layout._tables) <= bm25._TABLES_KEPT
 
 
 def test_layout_sorts_a_row_out_of_order():

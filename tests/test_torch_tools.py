@@ -1,9 +1,9 @@
 """The port's measurement tools (``nucliadb_tpu_torch/tools``) run only on
 a card, but what they build is plain text: every design variant of the
-int8 slot scan and of the BM25 kernel must still apply to the kernel's
-source (a variant whose anchor no longer matches would time the wrong
-kernel), and the wgmma rate probe must generate a kernel for each case it
-times."""
+int8 slot scan must still apply to the kernel's source (a variant whose
+anchor no longer matches would time the wrong kernel), every build of the
+BM25 kernel's tool must name a define its source tests for, and the wgmma
+rate probe must generate a kernel for each case it times."""
 
 import re
 
@@ -37,21 +37,22 @@ def test_phase_variants_export_their_reader():
 
 
 _BM25_SOURCE = (kernels.CSRC / "bm25_program.cu").read_text()
-_BM25_VARIANTS = bm25_variants.variants(_BM25_SOURCE)
 
 
-@pytest.mark.parametrize("name", sorted(set(_BM25_VARIANTS) - {"base"}))
+@pytest.mark.parametrize("name", sorted(set(bm25_variants.BUILDS) - {"base"}))
 def test_each_bm25_variant_changes_the_kernel_and_keeps_its_entries(name):
-    """Every variant of the BM25 kernel applies to its source, keeps both C
-    entries and balanced braces; the stamped one exports its reader and
-    stamps each phase boundary once."""
-    text = _BM25_VARIANTS[name]
-    assert _BM25_VARIANTS["base"] == _BM25_SOURCE and text != _BM25_SOURCE
-    assert 'extern "C" int bm25_program(' in text and 'extern "C" int bm25_merge(' in text
-    assert text.count("{") == text.count("}")
+    """Every build of the BM25 tool but the base one defines what the
+    kernel's source tests for; the stamped build exports its reader, and
+    the kernel stamps each phase boundary once on each of its paths."""
+    defines = bm25_variants.BUILDS[name]
+    assert bm25_variants.BUILDS["base"] == () and defines
+    for flag in defines:
+        assert flag.startswith("-D") and f"#ifdef {flag[2:]}" in _BM25_SOURCE
+    assert 'extern "C" int bm25_program(' in _BM25_SOURCE and 'extern "C" int bm25_merge(' in _BM25_SOURCE
     if name == "phases":
-        assert 'extern "C" int bm25_stamps(' in text
-        assert sorted(re.findall(r"STAMP\((\d)\);", text)) == ["0", "1", "2", "3", "4", "4", "5", "5", "5"]
+        assert 'extern "C" int bm25_stamps(' in _BM25_SOURCE
+        assert sorted(re.findall(r"STAMP\((\d)\);", _BM25_SOURCE)) == ["0", "1", "2", "3", "4", "5", "5", "5"]
+        assert f"STAMP_BLOCKS = {bm25_variants.STAMP_BLOCKS};" in _BM25_SOURCE
 
 
 def test_wgmma_rate_source_has_every_case():
