@@ -4402,7 +4402,7 @@ def phase_ops(torch, tmp, find, cfg, device="cuda"):
                 # the OpenTelemetry SDK would take the export: the port's
                 # exporter goes on the built-in tracer instead, so it is the
                 # one exercised
-                tracing._tracer = tracing._MiniTracer("nucliadb_tpu", exporter=OTLPHttpExporter(sink.endpoint))
+                tracing.setup_tracing(exporter=OTLPHttpExporter(sink.endpoint))
                 tracer_kind = "built-in tracer, the port's OTLPHttpExporter attached by the phase (the OTel SDK imports)"
             else:
                 tracing.setup_tracing()

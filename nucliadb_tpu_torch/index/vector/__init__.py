@@ -8,7 +8,9 @@ int8 codes (with or without the ``pallas`` flag), binary codes (with or
 without it), the ``ivf`` and ``hnsw`` strategies, whose centroids and
 graph the indexer builds on its ``device``, MULTI cardinality (MaxSim over
 one elem per paragraph holding its sentence vectors) and the paged tiers
-an ``NDBTPU_VECTOR_ARENA_BUDGET`` selects.
+an ``NDBTPU_VECTOR_ARENA_BUDGET`` selects. While tracing is on,
+``VectorSearcher.search`` records the spans ``searcher.mask`` (the
+request's mask) and ``searcher.hits`` (every row's ``VectorHit``s).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ...query_language import (
     LabelAtom,
     evaluate_bitset,
 )
+from ...telemetry import tracing
 from ...types import OpenIndexMetadata, PrefilterResult, SegmentMetadata, Seq, SimpleOpenIndex
 
 from .config import Quantization, Similarity, VectorCardinality, VectorConfig
@@ -227,9 +230,11 @@ class VectorSearcher:
             )
         if q.ndim == 3 and self.config.cardinality != VectorCardinality.MULTI:
             raise ValueError("multivector query against a single-vector index")
-        mask = self._build_mask(request)
+        with tracing.span("searcher.mask"):
+            mask = self._build_mask(request)
         scores, ids = self.index.search(
             q, request.top_k, para_mask=mask, min_score=request.min_score,
             with_duplicates=request.with_duplicates,
         )
-        return [self.index.hits(scores[b], ids[b]) for b in range(scores.shape[0])]
+        with tracing.span("searcher.hits"):
+            return [self.index.hits(scores[b], ids[b]) for b in range(scores.shape[0])]

@@ -49,6 +49,14 @@ The routes and their gates are the JAX package's (``device.py:523-632``);
 each slot scan is a CUDA kernel for tensors on the card and its plain
 version on the CPU.
 
+While tracing is on, a search of a resident SINGLE index (every route but
+the host exact tier, MaxSim and the paged tiers) records three spans in
+turn: ``device_index.prepare`` (the thread's stream, the mask, the padding
+and the pageable query upload; attributes ``rows`` and ``padded_rows``),
+``device_index.enqueue`` (the route's launches, ``_search_resident``) and
+``device_index.fetch`` (``device_fetch``: the copies and the wait for the
+thread's stream).
+
 Unlike JAX arrays, torch tensors are updated in place: an incremental
 refresh writes the new rows into the previous index's arena (see
 ``__init__``), so the two indexes share it.
@@ -63,6 +71,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ...telemetry import tracing
 from ...types import Seq
 from ...utils.buckets import bucket
 
@@ -596,23 +605,18 @@ class DeviceVectorIndex:
                 float(NEG_INF) if min_score is None else float(min_score),
                 dedup,
             )
-        thread_stream(self.device)
         if self.paging is not None:
+            thread_stream(self.device)
             mask_np = self.base_mask() if para_mask is None else self.base_mask() & para_mask
             s, i = self._search_paged(q, top_k, mask_np, min_score, dedup)
             return s[: q.shape[0]], i[: q.shape[0]]
-        if para_mask is None:
-            mask_t = self.base_mask_device()
-            matching = int(self.alive.sum())
-        else:
-            combined = self.base_mask() & para_mask
-            matching = int(combined.sum())
-            mask_t = torch.from_numpy(combined).to(self.device)
         # the floor compares in f32, as the JAX package's device scalar does
         ms = float(np.float32(NEG_INF if min_score is None else min_score))
         sim = self.config.similarity.value
 
         if self.multi:
+            thread_stream(self.device)
+            mask_t, _ = self._device_mask(para_mask)
             b = q.shape[0]
             b_pad = bucket(b, minimum=1)
             qp = np.zeros((b_pad,) + q.shape[1:], np.float32)
@@ -627,11 +631,33 @@ class DeviceVectorIndex:
             s, i = device_fetch(s, i)
             return s[:b], i[:b]
 
-        b = q.shape[0]
-        b_pad = bucket(b, minimum=8)
-        qp = np.zeros((b_pad, q.shape[1]), np.float32)
-        qp[:b] = q
-        qt = torch.from_numpy(qp).to(self.device)
+        with tracing.span("device_index.prepare") as span:
+            thread_stream(self.device)
+            mask_t, matching = self._device_mask(para_mask)
+            b = q.shape[0]
+            b_pad = bucket(b, minimum=8)
+            qp = np.zeros((b_pad, q.shape[1]), np.float32)
+            qp[:b] = q
+            qt = torch.from_numpy(qp).to(self.device)
+            if span is not None:
+                span.set_attribute("rows", b)
+                span.set_attribute("padded_rows", b_pad)
+        with tracing.span("device_index.enqueue"):
+            s, i = self._search_resident(qt, mask_t, matching, ms, top_k, sim, dedup, b_pad)
+        with tracing.span("device_index.fetch"):
+            s, i = device_fetch(s, i)
+        return s[:b], i[:b]
+
+    def _device_mask(self, para_mask: "np.ndarray | None") -> "tuple[torch.Tensor, int]":
+        """The eligible rows on the device and how many there are."""
+        if para_mask is None:
+            return self.base_mask_device(), int(self.alive.sum())
+        combined = self.base_mask() & para_mask
+        return torch.from_numpy(combined).to(self.device), int(combined.sum())
+
+    def _search_resident(self, qt, mask_t, matching, ms, top_k, sim, dedup, b_pad):
+        """Queue the resident SINGLE route's programs for the padded
+        queries ``qt``; returns the [b_pad, k] scores and ids on the device."""
         pallas = "pallas" in self.config.flags
         dim = self.config.dimension
         args = (self.codes, self.vectors, qt, mask_t, ms, top_k, sim, dedup)
@@ -642,7 +668,8 @@ class DeviceVectorIndex:
             s, i = ivf.ivf_search(self.ivf, self.vectors, prepare_query(qt, sim), mask_t, ms, k1)
             if dedup:
                 s, i = _exact_dedup_cut(self.vectors, qt, i, ms, top_k, sim)
-        elif self.graph is not None and self._use_graph(matching, top_k):
+            return s, i
+        if self.graph is not None and self._use_graph(matching, top_k):
             # the size-scaled default regime holds the 0.95 recall bar
             ef, trips = hnsw.default_search_params(self.graph.n_nodes)
             g = self.graph
@@ -652,12 +679,12 @@ class DeviceVectorIndex:
             )
             if dedup:
                 s, i = _exact_dedup_cut(self.vectors, qt, i, ms, top_k, sim)
-        elif isinstance(self.codes, quant.Int8Codes):
+            return s, i
+        if isinstance(self.codes, quant.Int8Codes):
             if pallas and slot_scan.eligible(self.p_pad, dim, False):
-                s, i = _search_int8_pallas(*args)
-            else:
-                s, i = _search_int8(*args)
-        elif isinstance(self.codes, quant.BinaryCodes):
+                return _search_int8_pallas(*args)
+            return _search_int8(*args)
+        if isinstance(self.codes, quant.BinaryCodes):
             # the JAX package's gate: the bucketed batch, and the Pallas
             # kernel's block for it
             if (
@@ -668,13 +695,9 @@ class DeviceVectorIndex:
                     block_n=binary_scan.binary_block_for(self.p_pad, b_pad, slot_scan.SLOTS),
                 )
             ):
-                s, i = _search_binary_pallas(*args)
-            else:
-                s, i = _search_binary(*args)
-        else:
-            s, i = _search_exact(self.vectors, qt, mask_t, ms, top_k, sim, dedup)
-        s, i = device_fetch(s, i)
-        return s[:b], i[:b]
+                return _search_binary_pallas(*args)
+            return _search_binary(*args)
+        return _search_exact(self.vectors, qt, mask_t, ms, top_k, sim, dedup)
 
     # ---- beyond-HBM search tiers ----------------------------------------
 
