@@ -57,6 +57,17 @@ and the pageable query upload; attributes ``rows`` and ``padded_rows``),
 ``device_index.fetch`` (``device_fetch``: the copies and the wait for the
 thread's stream).
 
+On a card, the resident int8 route (``_search_int8`` and
+``_search_int8_pallas``, no IVF layout or graph) replays a captured CUDA
+graph a call (``graphs.py``) where its launches dominate: at most
+``graphs.MAX_ROWS`` padded rows, candidates from a slot table. ``prepare``
+checks a replay out of the index's ``GraphCache`` by ``(b_pad, top_k, dedup,
+floor present, filtered)`` and uploads the padded queries and the floor into
+its static buffer (a filtered call its mask too), ``enqueue`` replays it
+(attribute ``graph``: ``replay``, ``capture`` or ``eager``), and the replay
+is checked in after the fetch (a new one is captured there). Every other
+route, and every CPU tensor, runs eagerly.
+
 Unlike JAX arrays, torch tensors are updated in place: an incremental
 refresh writes the new rows into the previous index's arena (see
 ``__init__``), so the two indexes share it.
@@ -64,7 +75,9 @@ refresh writes the new rows into the previous index's arena (see
 
 from __future__ import annotations
 
+import functools
 import os
+import weakref
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -79,7 +92,9 @@ from ...ops import binary_scan, hnsw, ivf, quant, slot_scan
 from ...ops.distance import prepare_query, rerank_scores, scores_matmul
 from ...ops.topk import NEG_INF, masked_topk
 from ...utils.platform import device_fetch, resolve_device, stream_wait, thread_stream
+from . import graphs
 from .config import EXACT_SCAN_THRESHOLD, Quantization, VectorCardinality, VectorConfig
+from .graphs import GRAPHS  # the replayed route's counter, also read as device.GRAPHS
 from .segment import LoadedSegment, alive_mask, key_prefix_ranges
 
 # host numpy exact tier eligibility: p_pad * dim at or below this runs the
@@ -115,6 +130,7 @@ class DeviceVectorIndex:
     ):
         self.device = resolve_device(device)
         thread_stream(self.device)
+        self._init_graphs()
         self.config = config
         self.multi = config.cardinality == VectorCardinality.MULTI
         dim = config.dimension
@@ -402,6 +418,7 @@ class DeviceVectorIndex:
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         thread_stream(self.device)
+        self._init_graphs()
         self.config = config
         self.multi = config.cardinality == VectorCardinality.MULTI
         self.keys = list(keys)
@@ -481,6 +498,12 @@ class DeviceVectorIndex:
             )
         stream_wait(self.device)
         return self
+
+    def _init_graphs(self) -> None:
+        """The index's own captured graphs, dropped with it (released by the
+        capture thread, ``graphs._drop``)."""
+        self._graphs = graphs.GraphCache(self.device)
+        weakref.finalize(self, self._graphs.close)
 
     def _set_host_arena(self, flat: np.ndarray) -> None:
         """Host numpy exact tier (SINGLE, resident): a corpus this small is
@@ -631,22 +654,82 @@ class DeviceVectorIndex:
             s, i = device_fetch(s, i)
             return s[:b], i[:b]
 
-        with tracing.span("device_index.prepare") as span:
-            thread_stream(self.device)
-            mask_t, matching = self._device_mask(para_mask)
-            b = q.shape[0]
-            b_pad = bucket(b, minimum=8)
-            qp = np.zeros((b_pad, q.shape[1]), np.float32)
-            qp[:b] = q
-            qt = torch.from_numpy(qp).to(self.device)
-            if span is not None:
-                span.set_attribute("rows", b)
-                span.set_attribute("padded_rows", b_pad)
-        with tracing.span("device_index.enqueue"):
-            s, i = self._search_resident(qt, mask_t, matching, ms, top_k, sim, dedup, b_pad)
-        with tracing.span("device_index.fetch"):
-            s, i = device_fetch(s, i)
+        graphed = self._graphed()
+        replay = None
+        try:
+            with tracing.span("device_index.prepare") as span:
+                thread_stream(self.device)
+                b = q.shape[0]
+                b_pad = bucket(b, minimum=8)
+                if graphed and self._replays(b_pad, top_k):
+                    key = graphs.key_of(b_pad, top_k, dedup, min_score is not None, para_mask is not None)
+                    replay = self._graphs.checkout(
+                        key, lambda: graphs.new_replay(key, q.shape[1], self.base_mask_device())
+                    )
+                qt, floor, mask_t, matching = self._upload(q, b_pad, ms, para_mask, replay)
+                if span is not None:
+                    span.set_attribute("rows", b)
+                    span.set_attribute("padded_rows", b_pad)
+            with tracing.span("device_index.enqueue") as span:
+                if graphed:
+                    (s, i), mode = graphs.enqueue(replay, functools.partial(
+                        self._int8_route(), self.codes, self.vectors, qt, mask_t, floor, top_k, sim, dedup,
+                    ))
+                    if span is not None:
+                        span.set_attribute("graph", mode)
+                else:
+                    s, i = self._search_resident(qt, mask_t, matching, ms, top_k, sim, dedup, b_pad)
+            with tracing.span("device_index.fetch"):
+                s, i = device_fetch(s, i)
+        except BaseException:
+            if replay is not None:
+                self._graphs.checkin(replay, ok=False)
+            raise
+        if replay is not None:
+            self._graphs.checkin(replay)
         return s[:b], i[:b]
+
+    def _graphed(self) -> bool:
+        """True when a search takes the resident int8 route on a card, with
+        no IVF layout or graph: the route ``graphs.py`` replays."""
+        return (
+            self.device.type == "cuda"
+            and isinstance(self.codes, quant.Int8Codes)
+            and self.ivf is None
+            and self.graph is None
+        )
+
+    def _replays(self, b_pad: int, top_k: int) -> bool:
+        """True when a call of the route replays a graph: at most
+        ``graphs.MAX_ROWS`` padded rows, and candidates from a slot table
+        (the rerank budget within the top-2 table, or the ``pallas`` route),
+        never from a ``[B, N]`` estimate matrix."""
+        if b_pad > graphs.MAX_ROWS or quant.int8_rerank_budget(top_k) > 2 * slot_scan.RESIDENT2_SLOTS:
+            return False
+        return self._int8_route() is _search_int8_pallas or slot_scan.resident2_eligible(
+            self.p_pad, self.config.dimension, b_pad, False
+        )
+
+    def _upload(self, q: np.ndarray, b_pad: int, ms: float, para_mask: "np.ndarray | None", replay):
+        """The padded queries, the floor, the eligible rows on the device and
+        how many they are. Into ``replay``'s buffers when there is one: the
+        queries and the floor in one copy, a filtered call's mask into its
+        mask, and otherwise the mask it holds, since ``base_mask_device`` is
+        filled lazily and threads that race there each make one, so the
+        index's may not be the one this replay's graph reads."""
+        if replay is None:
+            mask_t, matching = self._device_mask(para_mask)
+            qp = np.zeros((b_pad, q.shape[1]), np.float32)
+            qp[: q.shape[0]] = q
+            return torch.from_numpy(qp).to(self.device), ms, mask_t, matching
+        inputs = np.zeros(replay.inputs.shape[0], np.float32)
+        inputs[: q.size] = q.reshape(-1)
+        inputs[-1] = ms
+        replay.inputs.copy_(torch.from_numpy(inputs))
+        if para_mask is not None:
+            replay.mask.copy_(torch.from_numpy(self.base_mask() & para_mask))
+        floor_present = replay.key[3]
+        return replay.queries, replay.floor if floor_present else ms, replay.mask, None
 
     def _device_mask(self, para_mask: "np.ndarray | None") -> "tuple[torch.Tensor, int]":
         """The eligible rows on the device and how many there are."""
@@ -654,6 +737,13 @@ class DeviceVectorIndex:
             return self.base_mask_device(), int(self.alive.sum())
         combined = self.base_mask() & para_mask
         return torch.from_numpy(combined).to(self.device), int(combined.sum())
+
+    def _int8_route(self):
+        """``_search_int8_pallas`` under the ``pallas`` flag and its gate, else
+        ``_search_int8``."""
+        if "pallas" in self.config.flags and slot_scan.eligible(self.p_pad, self.config.dimension, False):
+            return _search_int8_pallas
+        return _search_int8
 
     def _search_resident(self, qt, mask_t, matching, ms, top_k, sim, dedup, b_pad):
         """Queue the resident SINGLE route's programs for the padded
@@ -681,9 +771,7 @@ class DeviceVectorIndex:
                 s, i = _exact_dedup_cut(self.vectors, qt, i, ms, top_k, sim)
             return s, i
         if isinstance(self.codes, quant.Int8Codes):
-            if pallas and slot_scan.eligible(self.p_pad, dim, False):
-                return _search_int8_pallas(*args)
-            return _search_int8(*args)
+            return self._int8_route()(*args)
         if isinstance(self.codes, quant.BinaryCodes):
             # the JAX package's gate: the bucketed batch, and the Pallas
             # kernel's block for it

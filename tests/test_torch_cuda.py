@@ -1241,3 +1241,391 @@ def test_cuda_kernel_builds_race_safely_on_a_fresh_build_dir(tmp_path):
     libs = [out.strip().splitlines()[-1] for out in outs]
     assert libs[0] == libs[1] and str(tmp_path / "build" / "kernels") in libs[0], libs
     assert not list((tmp_path / "build" / "kernels").glob("*.tmp"))
+
+
+# ---- the resident int8 route replayed as a captured CUDA graph -------------------
+
+
+def _graph_pair(flags=(), n=20000, d=128):
+    """Two copies of one int8 index on the card: ``graphed`` replays the
+    resident int8 route, ``eager`` never does. A duplicate row, deletions
+    and a label every third row."""
+    from nucliadb_tpu_torch.index.vector import VectorConfig
+    from nucliadb_tpu_torch.index.vector.device import DeviceVectorIndex
+    from nucliadb_tpu_torch.utils.buckets import bucket
+
+    rng = np.random.default_rng(31)
+    p_pad = bucket(n + 1)
+    arena = np.zeros((p_pad, d), np.float32)
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+    arena[:n] = rows / np.linalg.norm(rows, axis=1, keepdims=True)
+    arena[5] = arena[2]
+    alive = np.ones(n, bool)
+    alive[::97] = False
+    enc = quant.Int8Codes.encode(torch.from_numpy(arena))
+    arrays = {"alive": alive, "para_seg": np.zeros(n, np.int32), "vectors": arena,
+              "codes": enc.codes.numpy(), "scale": enc.scale.numpy()}
+    cfg = VectorConfig(dimension=d, similarity="cosine", quantization="int8", flags=list(flags))
+    meta = {"field": "/f/f", "split": "", "position": {"start": 0, "end": 1, "page_number": 0}}
+    labels = {"/l/a": np.arange(0, n, 3, dtype=np.int32)}
+
+    def build():
+        return DeviceVectorIndex.from_reference_state(
+            cfg, [f"r{i}/f/f/0-1" for i in range(n)], [meta] * n, labels, [frozenset()], [(0, n)],
+            arrays, device="cuda",
+        )
+
+    graphed, eager = build(), build()
+    eager._graphed = lambda: False
+    assert graphed._graphed() and graphed.codes is not None
+    return graphed, eager, arena[:n]
+
+
+def _near(rows, b, seed):
+    rng = np.random.default_rng(seed)
+    q = rows[rng.integers(0, rows.shape[0], b)]
+    return q + 0.3 * rng.standard_normal(q.shape, dtype=np.float32) / np.sqrt(q.shape[1])
+
+
+def _bits_same(got, want):
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].view(np.int32), want[0].view(np.int32))
+
+
+@pytest.mark.parametrize("floor", [None, 0.3])
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_cuda_replayed_route_equals_eager_bit_for_bit(monkeypatch, dedup, filtered, floor):
+    """Replays of the captured route answer as the eager route does, bit for
+    bit, at b in {1, 7, 8, 9, 33, 2048} and top_k in {10, 100}, with
+    ``torch.cuda.synchronize`` made to raise; one capture a key up to 64
+    padded rows, the batch of 2048 eager; one top-2 launch counted a call."""
+    _need_card()
+    from nucliadb_tpu_torch.index.vector import graphs
+
+    graphed, eager, rows = _graph_pair()
+    mask = (np.arange(rows.shape[0]) % 2 == 0) if filtered else None
+    kw = dict(para_mask=mask, min_score=floor, with_duplicates=not dedup)
+    _refuse_synchronize(monkeypatch)
+    graphs.GRAPHS.clear()
+    calls = 0
+    for b in (1, 7, 8, 9, 33, 2048):
+        for top_k in (10, 100):
+            for rep in range(3):
+                q = _near(rows, b, 1000 * b + 10 * top_k + rep)
+                launches = slot_scan.LAUNCHES["top2"]
+                got = graphed.search(q, top_k, **kw)
+                assert slot_scan.LAUNCHES["top2"] == launches + 1
+                _bits_same(got, eager.search(q, top_k, **kw))
+                calls += 1
+    keys = 3 * 2  # b_pad 8, 12, 48 by top_k 10, 100
+    eager_calls = keys + 3 * 2  # each key's first call, and b_pad 2048
+    assert graphs.GRAPHS == {"capture": keys, "eager": eager_calls, "replay": calls - eager_calls}
+    assert sorted(graphed._graphs.sizes().values()) == [1] * keys
+
+
+def test_cuda_replayed_buckets_interleave_on_one_thread(monkeypatch):
+    """Batches of 8, 2048, 8, 16, 2048, 16, 8 rows from one thread: two
+    captures, each later call of 8 or 16 rows a replay of its bucket, the
+    batches of 2048 eager, every answer the eager route's bit for bit."""
+    _need_card()
+    from nucliadb_tpu_torch.index.vector import graphs
+
+    graphed, eager, rows = _graph_pair()
+    _refuse_synchronize(monkeypatch)
+    graphs.GRAPHS.clear()
+    for n, b in enumerate((8, 2048, 8, 16, 2048, 16, 8)):
+        q = _near(rows, b, 50 + n)
+        _bits_same(graphed.search(q, 10), eager.search(q, 10))
+    assert graphs.GRAPHS == {"capture": 2, "eager": 4, "replay": 3}
+
+
+def test_cuda_replayed_pallas_route_equals_eager(monkeypatch):
+    """The ``pallas`` flag's route (the top-1 slot scan) replays too: bit
+    for bit, one top-1 launch counted a call."""
+    _need_card()
+    from nucliadb_tpu_torch.index.vector import graphs
+
+    graphed, eager, rows = _graph_pair(flags=("pallas",))
+    _refuse_synchronize(monkeypatch)
+    graphs.GRAPHS.clear()
+    for n, (b, kw) in enumerate([(5, {}), (5, {}), (40, dict(min_score=0.2)), (40, dict(min_score=0.5))]):
+        q = _near(rows, b, 70 + n)
+        launches = slot_scan.LAUNCHES["top1"]
+        got = graphed.search(q, 10, **kw)
+        assert slot_scan.LAUNCHES["top1"] == launches + 1
+        _bits_same(got, eager.search(q, 10, **kw))
+    assert graphs.GRAPHS == {"capture": 2, "eager": 2, "replay": 2}
+
+
+def test_cuda_coalesced_threads_replay_while_a_fifth_captures(monkeypatch):
+    """Four threads send 100 coalesced queries each while a fifth searches
+    twenty new keys (each a capture), with ``torch.cuda.synchronize`` made
+    to raise: every answer equals its solo eager answer bit for bit, the
+    coalesced key holds at most ``PER_KEY`` replays, and most dispatches
+    replay."""
+    _need_card()
+    import threading
+
+    from nucliadb_tpu_torch.index.vector import VectorSearcher, VectorSearchRequest, batcher, graphs
+
+    graphed, eager, rows = _graph_pair()
+    searcher = VectorSearcher.__new__(VectorSearcher)
+    searcher.index, searcher.config = graphed, graphed.config
+    qs = _near(rows, 400, 90)
+    # a VectorSearchRequest drops duplicates by default
+    want = [eager.search(q[None], 10, with_duplicates=False) for q in qs]
+    side = [(top_k, _near(rows, 3, 200 + top_k)) for top_k in range(11, 31)]
+    side_want = [eager.search(q, top_k) for top_k, q in side]
+    coalescer = batcher.QueryCoalescer(concurrency=4)
+    _refuse_synchronize(monkeypatch)
+    graphs.GRAPHS.clear()
+    got, side_got, errors = [None] * 400, [], []
+
+    def client(t):
+        try:
+            for j in range(t * 100, t * 100 + 100):
+                got[j] = coalescer.search_one(searcher, VectorSearchRequest(vectors=qs[j], top_k=10))
+        except BaseException as exc:  # reported below
+            errors.append(exc)
+
+    def capturer():
+        try:
+            for top_k, q in side:
+                side_got.append(graphed.search(q, top_k))
+        except BaseException as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+    threads.append(threading.Thread(target=capturer))
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    assert not errors, errors
+    for hits, (s, i) in zip(got, want):
+        keep = i[0] >= 0
+        assert [h.key for h in hits] == [graphed.keys[p] for p in i[0][keep]]
+        assert np.array_equal(np.array([h.score for h in hits], np.float32).view(np.int32),
+                              s[0][keep].view(np.int32))
+    for g, w in zip(side_got, side_want):
+        _bits_same(g, w)
+    sizes = graphed._graphs.sizes()
+    assert 1 <= sizes.pop(graphs.key_of(8, 10, True, False, False)) <= graphs.PER_KEY
+    assert sizes == {graphs.key_of(8, k, False, False, False): 1 for k in range(11, 31)}
+    assert graphs.GRAPHS["capture"] >= 21
+    assert graphs.GRAPHS["replay"] >= coalescer.dispatches // 2
+
+
+def test_cuda_capture_leaves_a_thread_sharing_the_callers_stream_alone(monkeypatch):
+    """PyTorch hands out its pool's 32 streams a device in turn, so two
+    threads can share a stream: a thread that launches and waits on the
+    searching thread's stream all through twenty captures keeps its own
+    results, and every capture holds."""
+    _need_card()
+    import threading
+
+    from nucliadb_tpu_torch.index.vector import graphs
+    from nucliadb_tpu_torch.utils.platform import thread_stream
+
+    graphed, eager, rows = _graph_pair()
+    stream = thread_stream("cuda")
+    stop, sums, errors = threading.Event(), [], []
+
+    def neighbour():
+        try:
+            torch.cuda.set_stream(stream)
+            x = torch.arange(1000, device="cuda", dtype=torch.float32)
+            while not stop.is_set():
+                sums.append((x * 2).sum().item())
+        except BaseException as exc:  # reported below
+            errors.append(exc)
+
+    graphs.GRAPHS.clear()
+    th = threading.Thread(target=neighbour)
+    th.start()
+    try:
+        for top_k in range(10, 30):
+            q = _near(rows, 3, 400 + top_k)
+            _bits_same(graphed.search(q, top_k), eager.search(q, top_k))
+    finally:
+        stop.set()
+        th.join(60)
+    assert not th.is_alive() and not errors, errors
+    assert sums and set(sums) == {999000.0}
+    assert graphs.GRAPHS == {"capture": 20, "eager": 20}
+
+
+def test_cuda_replays_keep_the_mask_they_were_captured_with(monkeypatch):
+    """Four threads make the index's lazy base mask at once, so three of the
+    masks they capture with are not the one the index keeps; each replay
+    holds its own, so once the losers' memory could be handed out again (and
+    is, to all-False masks), every replay still answers as the eager route
+    does, with no deleted row."""
+    _need_card()
+    import threading
+
+    from nucliadb_tpu_torch.index.vector import graphs
+    from nucliadb_tpu_torch.index.vector.device import DeviceVectorIndex
+
+    graphed, eager, rows = _graph_pair()
+    barrier = threading.Barrier(4, timeout=60)
+    made = DeviceVectorIndex.base_mask_device
+
+    def racing(self):
+        if self is graphed and self._base_mask_dev is None:
+            barrier.wait()
+        return made(self)
+
+    monkeypatch.setattr(DeviceVectorIndex, "base_mask_device", racing)
+    qs = [_near(rows, b, 500 + b) for b in (3, 12, 40, 60)]  # b_pad 8, 12, 48, 64
+    errors, held = [], []
+
+    def first(q):
+        try:
+            graphed.search(q, 10)
+            held.append(torch.zeros(graphed.p_pad, dtype=torch.bool, device="cuda"))
+        except BaseException as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=first, args=(q,)) for q in qs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    assert not errors, errors
+    monkeypatch.undo()
+    deleted = np.flatnonzero(~graphed.alive)
+    for rep in range(3):
+        for b in (3, 12, 40, 60):
+            q = _near(rows, b, 600 + 10 * b + rep)
+            got = graphed.search(q, 10)
+            _bits_same(got, eager.search(q, 10))
+            assert not np.isin(got[1], deleted).any()
+
+
+def test_cuda_a_failed_capture_answers_and_runs_its_key_eagerly(monkeypatch):
+    """A route that waits for the host inside its capture (refused while a
+    stream captures): the call answers from its eager run, its key runs
+    eagerly from then on, and the index then captures and replays another
+    key as usual."""
+    _need_card()
+    from nucliadb_tpu_torch.index.vector import graphs
+
+    graphed, eager, rows = _graph_pair()
+    route = graphed._int8_route()
+
+    def waiting(*args):
+        out = route(*args)
+        out[0].sum().item()
+        return out
+
+    monkeypatch.setattr(graphed, "_int8_route", lambda: waiting)
+    graphs.GRAPHS.clear()
+    q = _near(rows, 4, 300)
+    for _ in range(3):
+        _bits_same(graphed.search(q, 10), eager.search(q, 10))
+    assert graphs.GRAPHS == {"eager": 3}
+    monkeypatch.setattr(graphed, "_int8_route", lambda: route)
+    for _ in range(2):
+        _bits_same(graphed.search(q, 20), eager.search(q, 20))
+    assert graphs.GRAPHS == {"eager": 4, "capture": 1, "replay": 1}
+
+
+def test_cuda_concurrent_replays_answer_as_their_solo_calls(monkeypatch):
+    """Four threads search at once, each through batches of 40, 64, 200 and
+    2048 rows at top_k 100 with the duplicate cut (the replayed buckets
+    first captured, then replayed at once, beside the eager batches): every
+    answer equals its solo eager answer bit for bit, and each graph was
+    captured on a stream of its own."""
+    _need_card()
+    import threading
+
+    from nucliadb_tpu_torch.index.vector import graphs
+
+    graphed, eager, rows = _graph_pair()
+    _refuse_synchronize(monkeypatch)
+    sizes = (40, 64, 200, 2048)
+    calls = [(t, j, _near(rows, sizes[(t + j) % 4], 2000 + 10 * t + j)) for t in range(4) for j in range(12)]
+    want = {(t, j): eager.search(q, 100, with_duplicates=False) for t, j, q in calls}
+    errors = []
+
+    def concurrently():
+        got, barrier = {}, threading.Barrier(4, timeout=60)
+
+        def client(t):
+            try:
+                barrier.wait()
+                for u, j, q in calls:
+                    if u == t:
+                        got[(t, j)] = graphed.search(q, 100, with_duplicates=False)
+            except BaseException as exc:  # reported below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        return got
+
+    for _ in range(2):  # the replays each key needs at four threads, captured
+        concurrently()
+    graphs.GRAPHS.clear()
+    got = concurrently()
+    assert not errors, errors
+    for key, w in want.items():
+        _bits_same(got[key], w)
+    assert graphs.GRAPHS["replay"] >= 12 and graphs.GRAPHS["eager"] >= 24
+    assert graphs.GRAPHS["replay"] + graphs.GRAPHS["eager"] == len(calls)
+    kept = [r for free in graphed._graphs._free.values() for r in free]
+    assert len({r.stream.cuda_stream for r in kept}) == len(kept) > 2  # a stream, so a workspace, each
+
+
+def test_cuda_graphs_hold_at_most_their_memory_share(monkeypatch):
+    """Thirty-two keys at the largest replayed shapes (b_pad 48 and 64, top_k
+    100 and 128, duplicate cut, filter and floor on and off) with the card's
+    share set to 64 MiB: the graphs' count stops within one replay of the
+    share, the calls past it run eagerly and answer bit for bit, the memory
+    PyTorch reserves grows by no more than the count, and dropping the
+    index gives the graphs' memory back to the count."""
+    _need_card()
+    import gc
+
+    from nucliadb_tpu_torch.index.vector import graphs
+
+    graphed, eager, rows = _graph_pair()
+    gc.collect()
+    graphs.settle()
+    dev = torch.cuda.current_device()
+    held_before = graphs._BYTES.get(dev, 0)
+    share = held_before + (64 << 20)
+    monkeypatch.setitem(graphs._LIMITS, dev, share)
+    _refuse_synchronize(monkeypatch)
+    mask = np.arange(rows.shape[0]) % 2 == 0
+    calls = [
+        (b, top_k, dict(para_mask=mask if f else None, min_score=0.3 if fl else None, with_duplicates=not d))
+        for b in (40, 60) for top_k in (100, 128) for d in (False, True) for f in (False, True) for fl in (False, True)
+    ]
+    # the eager route's own intermediates are cached first, so that what
+    # grows below is the graphs'
+    for b, top_k, kw in calls:
+        eager.search(_near(rows, b, 1), top_k, **kw)
+    reserved = torch.cuda.memory_reserved()
+    graphs.GRAPHS.clear()
+    for n, (b, top_k, kw) in enumerate(calls):
+        for rep in range(2):
+            q = _near(rows, b, 900 + 10 * n + rep)
+            _bits_same(graphed.search(q, top_k, **kw), eager.search(q, top_k, **kw))
+    kept = [r for free in graphed._graphs._free.values() for r in free]
+    largest = max(r.bytes for r in kept)
+    held = graphs._BYTES[dev]
+    assert share <= held <= share + largest + (1 << 25), (held, share, largest)  # and a new stream's workspace
+    assert graphs.GRAPHS["eager"] > len(kept) and 0 < graphs.GRAPHS["capture"] == len(kept) < len(calls)
+    assert torch.cuda.memory_reserved() - reserved <= held - held_before + (16 << 20)
+    captured = graphs.GRAPHS["capture"]
+    del graphed, kept
+    gc.collect()
+    graphs.settle()
+    assert len(graphs._STREAMS[dev]) >= captured
+    assert graphs._BYTES[dev] <= held_before + len(graphs._STREAMS[dev]) * (1 << 25)
